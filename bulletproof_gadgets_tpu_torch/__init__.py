@@ -6,15 +6,19 @@ Layers (the JAX package's layout and module names):
   utils/   Keccak/STROBE/Merlin transcript, conversions, RNG
   core/    scalars, Ristretto group, generators, R1CS prover/verifier, IPA,
            proof serialization, op-recording constraint system
-  ops/     F_p limb arithmetic and curve ops (plain torch), the device MSM
-           and its kernel wrappers, engine wiring
-  csrc/    the CUDA kernels (field.cuh, msm_kernels.cu); native/ builds them
+  ops/     F_p and F_l limb arithmetic and curve ops (plain torch), the
+           device MSM, the device inner-product argument and table fold,
+           their kernel wrappers, engine wiring
+  csrc/    the CUDA kernels (field.cuh, msm_kernels.cu, ipa_fold.cu);
+           native/ builds them
   models/  the gadget zoo + native MiMC
   lang/    .gadgets/.inst/.wtns/.coms mini-language compiler + orchestrators
   cli/     prover / verifier command-line entry points
 
-Importing the package touches no device: call
-`bulletproof_gadgets_tpu_torch.ops.engine.register(device)` first.
+Importing the package touches no device.  The entry points
+(lang.prove.prove, lang.verify.verify) take `device=`; without it they use
+the device given to `ops.engine.register`, else CUDA (raising where CUDA
+is missing).
 """
 
 __version__ = "0.1.0"

@@ -24,9 +24,6 @@ def main(argv=None):
         return 1
     filename = argv[0]
 
-    from ..ops import engine
-    engine.register(os.environ.get("BPG_TORCH_DEVICE", "cuda"))
-
     from ..lang.prove import prove
 
     with open(filename + INSTANCE_VARS_EXT) as f:
@@ -37,7 +34,9 @@ def main(argv=None):
         gadgets = f.read()
 
     coms: list = []
-    proof, num_constraints = prove(filename, instance, witness, gadgets, coms)
+    proof, num_constraints = prove(
+        filename, instance, witness, gadgets, coms,
+        device=os.environ.get("BPG_TORCH_DEVICE", "cuda"))
     print(num_constraints)
 
     with open(filename + COMMITMENTS_EXT, "w") as f:

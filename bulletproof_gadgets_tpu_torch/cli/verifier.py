@@ -23,9 +23,6 @@ def main(argv=None):
         return 1
     filename = argv[0]
 
-    from ..ops import engine
-    engine.register(os.environ.get("BPG_TORCH_DEVICE", "cuda"))
-
     from ..lang.verify import verify
 
     with open(filename + INSTANCE_VARS_EXT) as f:
@@ -37,7 +34,8 @@ def main(argv=None):
     with open(filename + GADGETS_EXT) as f:
         gadgets = f.read()
 
-    verified = verify(filename, instance, proof, commitments, gadgets)
+    verified = verify(filename, instance, proof, commitments, gadgets,
+                      device=os.environ.get("BPG_TORCH_DEVICE", "cuda"))
     print("true" if verified else "false")
     return 0
 

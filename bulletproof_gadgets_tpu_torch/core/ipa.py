@@ -8,9 +8,11 @@ the CPU).  Here the generators never move: the fold state is carried in
 per-generator coefficient vectors gc/hc over F_l (after j rounds the virtual
 generator G'_i is sum_{t = i mod n_j} gc[t]*G_t), and each round's L/R is a
 single batched MSM over the ORIGINAL generator arrays — which stay resident
-on device across all rounds.  Host work per round is O(n) cheap scalar
-muls; all point work is MSM kernels.  The emitted L/R group elements (and
-hence compressed bytes and Fiat-Shamir challenges) are identical to dalek's.
+on device across all rounds.  With a device table (`supports_digits`) the
+coefficient vectors live on the device too and the table is folded every
+few rounds (ops/ipa_fused); the host loop below is the oracle for every
+other table.  The emitted L/R group elements (and hence compressed bytes
+and Fiat-Shamir challenges) are identical to dalek's.
 """
 
 from .scalar import Scalar, batch_invert
@@ -52,7 +54,8 @@ class InnerProductProof:
         (core.msm.generator_table) whose G/H slots are exactly the G/H
         arguments, plus the Fiat-Shamir scalar w with Q = w*B.  When given,
         each round's L and R are ONE `table.msm_many` call over the
-        resident table (the c_L*Q / c_R*Q terms ride the B slot as c*w).
+        resident table (the c_L*Q / c_R*Q terms ride the B slot as c*w);
+        a device table (`supports_digits`) runs ops/ipa_fused.create.
         """
         n_full = len(G)
         assert n_full == len(H) == len(a) == len(b)
@@ -61,10 +64,19 @@ class InnerProductProof:
 
         innerproduct_domain_sep(transcript, n_full)
 
+        from .scalar import L as _q
+        if (table is not None and getattr(table, "supports_digits", False)
+                and n_full > 1):
+            from ..ops import ipa_fused
+            L_vec, R_vec, a0, b0 = ipa_fused.create(
+                transcript, table, w.v % _q, [s.v % _q for s in G_factors],
+                [s.v % _q for s in H_factors], [s.v % _q for s in a],
+                [s.v % _q for s in b])
+            return InnerProductProof(L_vec, R_vec, Scalar(a0), Scalar(b0))
+
         # Hot path: raw-int modular arithmetic (Scalar wrappers only at the
         # transcript boundary).  gc/hc = coefficient of original G_t / H_t
         # inside the current virtual generators.
-        from .scalar import L as _q
         gc = [s.v % _q for s in G_factors]
         hc = [s.v % _q for s in H_factors]
         a = [s.v % _q for s in a]

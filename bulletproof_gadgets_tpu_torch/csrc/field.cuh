@@ -1,7 +1,9 @@
 // F_p (p = 2^255 - 19) and extended twisted-Edwards point functions shared
 // by every kernel of this package.  Plain-PyTorch twins: ops/fp.py (field)
 // and ops/curve.py (points); both compute the same integers, so kernel and
-// plain results agree limb for limb.
+// plain results agree limb for limb.  Every function is inline or static,
+// so each translation unit that includes this header gets its own copies
+// and the units link into one library without clashes.
 //
 // Layout: 10 signed int32 limbs, radix 2^25.5 (ref10): limb i weighs 2^S[i],
 // S = 0, 26, 51, 77, 102, 128, 153, 179, 204, 230; widths 26, 25, 26, ...
@@ -54,6 +56,13 @@ __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
   fe r;
 #pragma unroll
   for (int i = 0; i < 10; i++) r.v[i] = a.v[i] - b.v[i];
+  return r;
+}
+
+__device__ __forceinline__ fe fe_neg(const fe& a) {
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) r.v[i] = -a.v[i];
   return r;
 }
 
@@ -114,6 +123,64 @@ __device__ __forceinline__ fe fe_mul(const fe& f, const fe& g) {
   return fe_carry(h);
 }
 
+__device__ __forceinline__ fe fe_sqn(fe x, int n) {
+  for (int i = 0; i < n; i++) x = fe_mul(x, x);
+  return x;
+}
+
+// z^(p-2) = 1/z, the curve25519 chain (ops/curve.inv_fp): 254 squarings
+// and 11 multiplies
+static __device__ __noinline__ fe fe_inv(const fe& z) {
+  const fe z2 = fe_mul(z, z);
+  const fe z9 = fe_mul(fe_sqn(z2, 2), z);
+  const fe z11 = fe_mul(z9, z2);
+  const fe z_5_0 = fe_mul(fe_mul(z11, z11), z9);
+  const fe z_10_0 = fe_mul(fe_sqn(z_5_0, 5), z_5_0);
+  const fe z_20_0 = fe_mul(fe_sqn(z_10_0, 10), z_10_0);
+  const fe z_40_0 = fe_mul(fe_sqn(z_20_0, 20), z_20_0);
+  const fe z_50_0 = fe_mul(fe_sqn(z_40_0, 10), z_10_0);
+  const fe z_100_0 = fe_mul(fe_sqn(z_50_0, 50), z_50_0);
+  const fe z_200_0 = fe_mul(fe_sqn(z_100_0, 100), z_100_0);
+  const fe z_250_0 = fe_mul(fe_sqn(z_200_0, 50), z_50_0);
+  return fe_mul(fe_sqn(z_250_0, 5), z11);
+}
+
+// the unique limbs in [0, 2^w) of the value mod p, for |limb| < 2^28 - 152
+// (ops/fp.canonical, op for op)
+__device__ __forceinline__ fe fe_canonical(const fe& a) {
+  int32_t h[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++)  // + 8p, split limb-wise (ops/fp._BIAS_8P)
+    h[i] = a.v[i] + 8 * ((1 << ((i & 1) ? 25 : 26)) - (i == 0 ? 19 : 1));
+#pragma unroll
+  for (int r = 0; r < 3; r++) {
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      const int w = (i & 1) ? 25 : 26;
+      const int32_t c = h[i] >> w;
+      h[i] &= (1 << w) - 1;
+      if (i == 9)
+        h[0] += 19 * c;
+      else
+        h[i + 1] += c;
+    }
+  }
+  int32_t q = (h[0] + 19) >> 26;  // value >= p ?
+#pragma unroll
+  for (int i = 1; i < 10; i++) q = (h[i] + q) >> ((i & 1) ? 25 : 26);
+  h[0] += 19 * q;
+  fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const int w = (i & 1) ? 25 : 26;
+    const int32_t c = h[i] >> w;
+    h[i] &= (1 << w) - 1;
+    if (i < 9) h[i + 1] += c;
+    r.v[i] = h[i];
+  }
+  return r;
+}
+
 __device__ __forceinline__ ge ge_identity() {
   ge r;
   r.X = fe_zero();
@@ -168,6 +235,36 @@ __device__ __forceinline__ ge ge_dbl(const ge& p) {
   const fe h = fe_add(a, b);
   const fe e = fe_sub(h, xysq), g = fe_sub(a, b);
   const fe f = fe_add(c, g);
+  ge r;
+  r.X = fe_mul(e, f);
+  r.Y = fe_mul(g, h);
+  r.Z = fe_mul(f, g);
+  r.T = fe_mul(e, h);
+  return r;
+}
+
+// cached form (y - x, y + x, 2z, 2d*t) of an extended point
+struct ge_cached {
+  fe d, s, z2, t2d;
+};
+
+__device__ __forceinline__ ge_cached ge_to_cached(const ge& p) {
+  ge_cached c;
+  c.d = fe_sub(p.Y, p.X);
+  c.s = fe_add(p.Y, p.X);
+  c.z2 = fe_add(p.Z, p.Z);
+  c.t2d = fe_mul(p.T, fe_d2());
+  return c;
+}
+
+// extended + cached (ops/curve.padd_cached; 8 muls)
+__device__ __forceinline__ ge ge_padd_cached(const ge& p, const ge_cached& q) {
+  const fe a = fe_mul(fe_sub(p.Y, p.X), q.d);
+  const fe b = fe_mul(fe_add(p.Y, p.X), q.s);
+  const fe c = fe_mul(p.T, q.t2d);
+  const fe d = fe_mul(p.Z, q.z2);
+  const fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c),
+           h = fe_add(b, a);
   ge r;
   r.X = fe_mul(e, f);
   r.Y = fe_mul(g, h);

@@ -15,6 +15,7 @@ from ..core.scalar import Scalar
 from ..utils.merlin import new_transcript as Transcript
 from ..utils.conversions import be_to_scalar, be_to_scalars, scalar_to_be
 from ..utils import rng
+from ..ops import engine
 from ..models.bounds_check import BoundsCheck
 from ..models.equality import Equality
 from ..models.inequality import Inequality
@@ -107,11 +108,14 @@ def prove_prepared(name: str, instance: str, witness: str, gadgets: str,
 
 
 def prove(name: str, instance: str, witness: str, gadgets: str,
-          coms_out: list):
+          coms_out: list, device=None):
     """Returns proof bytes; appends commitment lines to coms_out.
 
     Mirrors prove() at src/prove.rs:37-82; returns (proof_bytes,
-    num_constraints)."""
+    num_constraints).  The device work runs on `device` ("cuda", "cpu",
+    ...), else on the device registered before (ops/engine), else on CUDA,
+    which raises where CUDA is missing."""
+    engine.use(device)
     prover, bp_gens, num_constraints = prove_prepared(
         name, instance, witness, gadgets, coms_out)
     proof = prover.prove(bp_gens)

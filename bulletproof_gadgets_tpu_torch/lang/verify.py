@@ -14,6 +14,7 @@ from ..core.transcript import ProofError
 from ..core.lc import to_lc
 from ..utils.merlin import new_transcript as Transcript
 from ..utils.conversions import be_to_scalar, be_to_scalars
+from ..ops import engine
 from ..models.bounds_check import BoundsCheck
 from ..models.equality import Equality
 from ..models.inequality import Inequality
@@ -32,8 +33,10 @@ from . import template
 
 
 def verify(name: str, instance: str, proof_bytes: bytes, commitments: str,
-           gadgets: str) -> bool:
-    """Mirrors verify() at src/verify.rs:36-73."""
+           gadgets: str, device=None) -> bool:
+    """Mirrors verify() at src/verify.rs:36-73.  `device` as in
+    lang.prove.prove."""
+    engine.use(device)
     try:
         transcript = Transcript(name.encode())
         pc_gens = PedersenGens.default()

@@ -1,11 +1,16 @@
-"""Build and load the package's CUDA kernels (csrc/*.cu) with ctypes.
+"""Build and load the package's CUDA kernels (csrc/*.cu) with ctypes, and
+the plumbing every kernel wrapper shares.
 
-`load()` compiles every `csrc/*.cu` with nvcc into one shared library with a
-plain C interface (no PyTorch headers, so the build takes seconds), under
-`_build/` inside the package (which git ignores), named by the hash of the
-sources and flags so an edit rebuilds.  Nothing is built when the package is imported: the first kernel
+`load()` compiles every `csrc/*.cu` with nvcc (one process per source, in
+parallel) into one shared library with a plain C interface (no PyTorch
+headers, so the build takes seconds), under `_build/` inside the package
+(which git ignores), named by the hash of the sources and flags so an edit
+rebuilds.  Nothing is built when the package is imported: the first kernel
 launch calls `load()`.  `BUILD_LOG` keeps nvcc's output (-Xptxas -v:
 registers, spills) of a build made in this process.
+
+`LAUNCHES` counts, per kernel, the launches its wrapper made (and nothing
+else: a wrapper given CPU tensors runs the plain version and counts none).
 """
 import ctypes
 import glob
@@ -13,6 +18,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
@@ -27,7 +34,11 @@ _FUNCS = {
     "bpg_bucket_merge": [_P, _I, _P, _P, _I, _P, _P],
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
+    "bpg_ladder_fold": [_P, _P, _P, _I, _I, _P, _P, _P],
 }
+
+LAUNCHES = {"bucket_accumulate": 0, "bucket_merge": 0, "window_sums": 0,
+            "horner": 0, "ladder_fold": 0}
 
 _LIB = None
 BUILD_LOG = ""
@@ -55,19 +66,38 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels (if this source state has no library yet)."""
+    """Compile the kernels (if this source state has no library yet): one
+    nvcc per source, all started together, then one link."""
     global BUILD_LOG
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + [
-        s for s in _sources() if s.endswith(".cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc] + compile_flags + ["-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], False
+    for _, job in jobs:
+        logs.append(job.communicate()[0])
+        failed |= job.returncode != 0
+    if not failed:
+        res = subprocess.run([nvcc] + NVCC_FLAGS + ["-o", tmp]
+                             + [obj for obj, _ in jobs],
+                             capture_output=True, text=True)
+        logs.append(res.stdout + res.stderr)
+        failed = res.returncode != 0
+    for obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    BUILD_LOG = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
     os.replace(tmp, path)
     return path
 
@@ -83,3 +113,39 @@ def load():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+# ---------------------------------------------------------------------------
+# wrapper plumbing
+
+def check(t, name, shape):
+    """int32, contiguous, and the given shape (None = any extent)."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
+        raise TypeError(f"{name}: expected an int32 tensor")
+    if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def kernels_for(*tensors):
+    """The loaded kernel library for CUDA tensors, None for CPU tensors."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors):
+        raise ValueError("tensors on different devices")
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    return load()
+
+
+def stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launched(name, rc):
+    LAUNCHES[name] += 1
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed, cudaError {rc}")

@@ -9,7 +9,8 @@ intervals.  The CUDA point functions follow these sequences op for op.
 Counterparts in the JAX package: `_padd_body` and `_madd_body` in
 ops/pallas_curve.py; `dbl` is the dedicated doubling of dalek (and of the
 JAX package's ops/curve.pdouble), 4 squarings + 4 muls instead of the TPU
-Horner's padd(acc, acc).
+Horner's padd(acc, acc); `padd_cached`, the cached form and `inv_fp` are
+ops/ipa_fold.py's `_padd_cached_body` and `inv_fp_cols`.
 """
 import torch
 
@@ -64,6 +65,47 @@ def dbl(p, F=fp):
     e, g = F.sub(h, xysq), F.sub(a, b)
     f = F.add(c, g)
     return tuple(F.mul_many([e, g, f, e], [f, h, g, h]))
+
+
+def to_cached(p, F=fp):
+    """Extended point -> cached form (y - x, y + x, 2z, 2d*t) (1 mul)."""
+    x, y, z, t = p
+    return (F.sub(y, x), F.add(y, x), F.add(z, z), F.mul(t, F.d2_like(t)))
+
+
+def neg_cached(c, F=fp):
+    """The cached form of -P: y - x and y + x swap, 2d*t changes sign."""
+    d, s, z2, t2d = c
+    return (s, d, z2, F.neg(t2d))
+
+
+def padd_cached(p, c, F=fp):
+    """Extended acc + cached operand (8 muls)."""
+    x1, y1, z1, t1 = p
+    dc, sc, z2c, t2dc = c
+    a, b, cc, d = F.mul_many([F.sub(y1, x1), F.add(y1, x1), t1, z1],
+                             [dc, sc, t2dc, z2c])
+    return _finish(F, a, b, cc, d)
+
+
+def inv_fp(z, F=fp):
+    """z^(p-2) = 1/z: the curve25519 chain, 254 squarings + 11 muls."""
+    def sq_n(x, n):
+        for _ in range(n):
+            x = F.mul(x, x)
+        return x
+    z2 = F.mul(z, z)
+    z9 = F.mul(sq_n(z2, 2), z)
+    z11 = F.mul(z9, z2)
+    z_5_0 = F.mul(F.mul(z11, z11), z9)            # z^(2^5 - 1)
+    z_10_0 = F.mul(sq_n(z_5_0, 5), z_5_0)
+    z_20_0 = F.mul(sq_n(z_10_0, 10), z_10_0)
+    z_40_0 = F.mul(sq_n(z_20_0, 20), z_20_0)
+    z_50_0 = F.mul(sq_n(z_40_0, 10), z_10_0)
+    z_100_0 = F.mul(sq_n(z_50_0, 50), z_50_0)
+    z_200_0 = F.mul(sq_n(z_100_0, 100), z_100_0)
+    z_250_0 = F.mul(sq_n(z_200_0, 50), z_50_0)
+    return F.mul(sq_n(z_250_0, 5), z11)           # 2^255 - 21 = p - 2
 
 
 def stack(p):

@@ -4,7 +4,9 @@ core backends for one explicit torch device.
 `register(device)` sets core.msm's generic backend (MSMs of at least
 MIN_DEVICE_MSM points) and its generator-table factory.  Tables are cached
 by content, so the prover and the verifier of one circuit size share one
-device-resident source.  Nothing registers itself at import.
+device-resident source.  Nothing registers itself at import: the entry
+points (lang.prove.prove, lang.verify.verify) call `use(device)`, which
+registers CUDA unless a device was given or registered before.
 """
 import torch
 
@@ -15,6 +17,7 @@ MIN_DEVICE_MSM = 192
 
 _table_cache = {}
 _TABLE_CACHE_MAX = 3
+_device = None          # the registered device
 
 
 def _table_key(G, H, B, B_blinding):
@@ -41,6 +44,7 @@ def table_factory(G, H, B, B_blinding, device):
 def register(device) -> torch.device:
     """Route core.msm's device work to `device` ('cuda', 'cuda:1', 'cpu').
     CUDA that is asked for and not there raises: no silent CPU run."""
+    global _device
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not "
@@ -50,4 +54,14 @@ def register(device) -> torch.device:
     core_msm.set_table_factory(
         lambda G, H, B, B_blinding: table_factory(G, H, B, B_blinding,
                                                   device))
+    _device = device
     return device
+
+
+def use(device=None) -> torch.device:
+    """The device of an entry point: `device` when given (registered now),
+    else the one registered before, else CUDA (which raises where CUDA is
+    missing: the port never falls back to the CPU unasked)."""
+    if device is not None or _device is None:
+        return register("cuda" if device is None else device)
+    return _device

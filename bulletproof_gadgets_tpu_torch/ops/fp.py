@@ -101,6 +101,10 @@ def sub(a, b):
     return a - b
 
 
+def neg(a):
+    return -a
+
+
 def carry(h):
     """Rounding carry chain in CARRY_ORDER on int64 columns [NL, ...].  The
     two chains (limbs 0..4 and 4..9) run as strided pairs (i, i+4), which

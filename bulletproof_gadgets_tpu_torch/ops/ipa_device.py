@@ -1,0 +1,90 @@
+"""Device helpers of the inner-product argument: the port of the parts of the
+JAX package's ops/ipa_device.py that the fused IPA (ops/ipa_fused) uses.
+
+The four coefficient vectors live on the device for the whole argument:
+a and b in std form, gc and hc (the collapsed-fold coefficients of the
+table's generators inside the current virtual ones) in Montgomery form.
+Rows are canonical F_l limbs of ops/fl, [n_full, NW].
+
+Round structure (positions relative to the current virtual length n):
+  pos = t mod n;  cross index ga[t] = pos-half if pos >= half else pos+half
+  L: G_t gets a[pos-half]*gc[t] when pos >= half, H_t gets b[pos+half]*hc[t]
+     when pos < half, B gets c_L*w;  R mirrors with the halves swapped.
+
+The digits are the dense [64, m] matrix (L's 32 windows over R's).  The JAX
+package's compact layout (`_scalars_compact` and its source `remap`) halves
+its TPU entry sort; here `msm_serial.plan` drops zero digits before its
+sort anyway, so the dense layout is kept: the points are the same.
+"""
+import functools
+
+import numpy as np
+import torch
+
+from . import fl, flvec
+
+
+@functools.lru_cache(maxsize=8)
+def round_masks(n_full: int, device="cpu"):
+    """Per round (n = n_full, n_full/2, ..., 2), a dict of device tensors:
+      ga    [n_full] long: the cross-half gather index (see module doc)
+      hi    [n_full, 1] bool: pos >= half
+      cs    [n_full] long: shift-by-half gather for c_L / c_R
+      lo_i  [n_full, 1] bool: i < half (the rows of c_L)
+      hi_i  [n_full, 1] bool: half <= i < n (the rows of c_R)"""
+    out = []
+    t = np.arange(n_full)
+    n = n_full
+    while n != 1:
+        half = n // 2
+        pos = t % n
+        hi = pos >= half
+        out.append({
+            "ga": np.where(hi, pos - half, pos + half),
+            "hi": hi[:, None],
+            "cs": np.where(t < half, t + half, np.maximum(t - half, 0)),
+            "lo_i": (t < half)[:, None],
+            "hi_i": ((t >= half) & (t < n))[:, None]})
+        n = half
+    return [{k: torch.from_numpy(v).to(device) for k, v in m.items()}
+            for m in out]
+
+
+def _fold(a, b, gc, hc, u_m, uinv_m, ga, hi):
+    """One dalek fold on full-length rows: a' = a*u + a[ga]*u^-1, b' = b*u^-1
+    + b[ga]*u (the rows below half are the folded vector), gc' = gc * (u if
+    hi else u^-1), hc' mirrored.  u_m, uinv_m: Montgomery rows [NW]."""
+    fg = torch.where(hi, u_m, uinv_m)
+    fh = torch.where(hi, uinv_m, u_m)
+    prod = fl.mont_mul(
+        torch.stack([a, a[ga], b, b[ga], gc, hc]),
+        torch.stack([u_m.expand_as(fg), uinv_m.expand_as(fg),
+                     uinv_m.expand_as(fg), u_m.expand_as(fg), fg, fh]))
+    sums = fl.add(prod[0:4:2], prod[1:4:2])
+    return sums[0], sums[1], prod[4], prod[5]
+
+
+def _scalar_rows(a, b, gc, hc, wr2, mk):
+    """[2m, NW] std rows (m = 2*n_full + 2): the L vector over the R vector.
+    wr2 = w * R^2 (std row), so mont_mul(c / R, wr2) = c * w."""
+    ga, hi = mk["ga"], mk["hi"]
+    prod_a, prod_b, p1 = fl.mont_mul(
+        torch.stack([a[ga], b[ga], a]), torch.stack([gc, hc, b[mk["cs"]]]))
+    zero = torch.zeros_like(p1)
+    sums = flvec.sum_rows(torch.stack([torch.where(mk["lo_i"], p1, zero),
+                                       torch.where(mk["hi_i"], p1, zero)]))
+    c_lr = fl.mont_mul(sums, wr2)                    # c_L * w, c_R * w
+    tail = torch.zeros_like(c_lr[:1])
+    v_l = torch.cat([torch.where(hi, prod_a, zero),
+                     torch.where(hi, zero, prod_b), c_lr[:1], tail])
+    v_r = torch.cat([torch.where(hi, zero, prod_a),
+                     torch.where(hi, prod_b, zero), c_lr[1:], tail])
+    return torch.cat([v_l, v_r])
+
+
+def _scalars(a, b, gc, hc, wr2, mk):
+    """This round's L and R MSM scalars as signed c = 8 digits, int8
+    [2*32, m] (L's windows, then R's; m = 2*n_full + 2)."""
+    dig = flvec.digits_device(_scalar_rows(a, b, gc, hc, wr2, mk))
+    m = dig.shape[1] // 2
+    return torch.cat([dig[:, :m], dig[:, m:]]).contiguous()

@@ -3,8 +3,9 @@ ops/msm_serial.py (its readback planner with one fixed window width c = 8).
 
 One MSM of k scalar vectors over an n-point source:
 
-  digits   host: signed c=8 recode (ops/msm.signed_digits), k*W windows of
-           NB = 128 buckets each; uploaded once as int8 [k*W, n].
+  digits   signed c=8 recode, k*W windows of NB = 128 buckets each, int8
+           [k*W, n]: on the host (ops/msm.signed_digits, uploaded once) or
+           on the device (ops/flvec.digits_device).
   plan     device: one sort of the packed (bucket, source row) entries and
            one bincount; the [k*W*NB] bucket counts are the only readback.
            The host picks the round budget T and splits a bucket with c
@@ -23,11 +24,15 @@ One MSM of k scalar vectors over an n-point source:
 Each kernel's wrapper checks its tensors' dtype, shape, contiguity and
 device, launches the CUDA kernel for CUDA tensors (csrc/msm_kernels.cu,
 built by bulletproof_gadgets_tpu_torch.native) and counts the launch in
-LAUNCHES; for CPU tensors it runs the plain PyTorch version beside it,
-which computes the same limbs.  Indices are in range by construction of
-`plan` over a [2n+1]-row source (checked on the host in
-`msm_many_digits_t`), so the wrappers read nothing back; the plain
-versions check them.
+LAUNCHES (native.LAUNCHES); for CPU tensors it runs the plain PyTorch
+version beside it, which computes the same limbs.  Indices are in range by
+construction of `plan` over a [2n+1]-row source (checked on the host in
+`msm_digits_t`), so the wrappers read nothing back; the plain versions
+check them.
+
+Two entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
+signed digits already on the device (the device IPA, ops/ipa_fused) and
+returns the points as device columns, read back by the caller.
 
 Not ported, because they serve the TPU: the static tight/safe plans and
 their overflow re-run (remote round trips), the Mosaic/VMEM constants (pool
@@ -55,44 +60,7 @@ _2D = 2 * _D % _P
 _LANE_TARGET = 1 << 16
 _MIN_ROUNDS = 4
 
-LAUNCHES = {"bucket_accumulate": 0, "bucket_merge": 0, "window_sums": 0,
-            "horner": 0}
-
-
-# ---------------------------------------------------------------------------
-# wrapper plumbing
-
-def _check(t, name, shape):
-    """int32, contiguous, and the given shape (None = any extent)."""
-    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected an int32 tensor")
-    if t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _kernels(*tensors):
-    """The loaded kernel library for CUDA tensors, None for CPU tensors."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("tensors on different devices")
-    if dev.type == "cpu":
-        return None
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    return native.load()
-
-
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _launched(name, rc):
-    LAUNCHES[name] += 1
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed, cudaError {rc}")
+LAUNCHES = native.LAUNCHES       # every kernel's count, K6's included
 
 
 # ---------------------------------------------------------------------------
@@ -108,17 +76,18 @@ def bucket_accumulate(src, idx):
     thread per lane keeps its accumulator in registers for all T rounds;
     idx[t, :] is read coalesced across the warp and each row with eight
     16-byte loads."""
-    _check(src, "src", (None, ROW))
-    _check(idx, "idx", (None, None))
-    lib = _kernels(src, idx)
+    native.check(src, "src", (None, ROW))
+    native.check(idx, "idx", (None, None))
+    lib = native.kernels_for(src, idx)
     if lib is None:
         return bucket_accumulate_plain(src, idx)
     t, p = idx.shape
     out = torch.empty((4, NL, p), dtype=torch.int32, device=src.device)
     if p == 0:
         return out
-    _launched("bucket_accumulate", lib.bpg_bucket_accumulate(
-        src.data_ptr(), idx.data_ptr(), t, p, out.data_ptr(), _stream(src)))
+    native.launched("bucket_accumulate", lib.bpg_bucket_accumulate(
+        src.data_ptr(), idx.data_ptr(), t, p, out.data_ptr(),
+        native.stream(src)))
     return out
 
 
@@ -148,17 +117,17 @@ def bucket_merge(pool, offs, sub):
     lanes in sequence (a bit-vector bucket splits over ~n/T lanes).
     Design: a bucket's lanes are contiguous, so one thread per bucket
     reads them in order — no scan steps, no segment ids."""
-    _check(pool, "pool", (4, NL, None))
-    _check(offs, "offs", (None,))
-    _check(sub, "sub", (offs.shape[0],))
-    lib = _kernels(pool, offs, sub)
+    native.check(pool, "pool", (4, NL, None))
+    native.check(offs, "offs", (None,))
+    native.check(sub, "sub", (offs.shape[0],))
+    lib = native.kernels_for(pool, offs, sub)
     if lib is None:
         return bucket_merge_plain(pool, offs, sub)
     m = offs.shape[0]
     out = torch.empty((4, NL, m), dtype=torch.int32, device=pool.device)
-    _launched("bucket_merge", lib.bpg_bucket_merge(
+    native.launched("bucket_merge", lib.bpg_bucket_merge(
         pool.data_ptr(), pool.shape[2], offs.data_ptr(), sub.data_ptr(), m,
-        out.data_ptr(), _stream(pool)))
+        out.data_ptr(), native.stream(pool)))
     return out
 
 
@@ -194,16 +163,16 @@ def window_sums(buckets):
     thread per window runs the running-sum recurrence (running += S_j,
     total += running, j from NB-1 down), the same adds as the scan without
     its log-step waste."""
-    _check(buckets, "buckets", (4, NL, None))
+    native.check(buckets, "buckets", (4, NL, None))
     if buckets.shape[2] % NB:
         raise ValueError("buckets: lane count not a multiple of NB")
-    lib = _kernels(buckets)
+    lib = native.kernels_for(buckets)
     if lib is None:
         return window_sums_plain(buckets)
     nw = buckets.shape[2] // NB
     out = torch.empty((4, NL, nw), dtype=torch.int32, device=buckets.device)
-    _launched("window_sums", lib.bpg_window_sums(
-        buckets.data_ptr(), nw, NB, out.data_ptr(), _stream(buckets)))
+    native.launched("window_sums", lib.bpg_window_sums(
+        buckets.data_ptr(), nw, NB, out.data_ptr(), native.stream(buckets)))
     return out
 
 
@@ -229,13 +198,13 @@ def horner(ws, k):
     Bound on the H100: latency — (W-1)*(C+1) dependent point operations
     per vector, k threads.  Design: one thread per vector, dedicated
     doublings (4 squarings + 4 muls) instead of the TPU's padd(acc, acc)."""
-    _check(ws, "ws", (4, NL, k * W))
-    lib = _kernels(ws)
+    native.check(ws, "ws", (4, NL, k * W))
+    lib = native.kernels_for(ws)
     if lib is None:
         return horner_plain(ws, k)
     out = torch.empty((4, NL, k), dtype=torch.int32, device=ws.device)
-    _launched("horner", lib.bpg_horner(
-        ws.data_ptr(), k, W, C, out.data_ptr(), _stream(ws)))
+    native.launched("horner", lib.bpg_horner(
+        ws.data_ptr(), k, W, C, out.data_ptr(), native.stream(ws)))
     return out
 
 
@@ -332,16 +301,25 @@ def points_from_cols(cols):
     return [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
 
 
-def msm_many_digits_t(digits_t: np.ndarray, src, n: int):
-    """digits_t int8 [k*W, n] (host) over the device rows src -> k points."""
+def msm_digits_t(digits_t, src, n: int):
+    """digits_t int8 [k*W, n] on src's device over the rows src -> int32
+    [4, NL, k] extended points (no readback but plan's counts)."""
     k = digits_t.shape[0] // W
-    if digits_t.shape[1] != n or src.shape[0] != 2 * n + 1:
-        raise ValueError(f"digits {digits_t.shape} / source rows "
-                         f"{src.shape[0]}: expected [k*W, {n}] / {2 * n + 1}")
-    idx, offs, sub = plan(torch.from_numpy(digits_t).to(src.device), n)
+    if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
+            or digits_t.device != src.device):
+        raise ValueError(f"digits {tuple(digits_t.shape)} on "
+                         f"{digits_t.device} / source rows {src.shape[0]} on "
+                         f"{src.device}: expected [k*W, {n}] / {2 * n + 1}")
+    idx, offs, sub = plan(digits_t, n)
     pool = bucket_accumulate(src, idx)
     buckets = bucket_merge(pool, offs, sub)
-    return points_from_cols(horner(window_sums(buckets), k))
+    return horner(window_sums(buckets), k)
+
+
+def msm_many_digits_t(digits_t: np.ndarray, src, n: int):
+    """digits_t int8 [k*W, n] (host) over the device rows src -> k points."""
+    return points_from_cols(msm_digits_t(
+        torch.from_numpy(digits_t).to(src.device), src, n))
 
 
 def msm_many(vectors, src, n: int):
@@ -362,11 +340,13 @@ def msm(scalars, points, device) -> RistrettoPoint:
 class GeneratorTable:
     """Device-resident MSM table over [G_0..G_{N-1} | H_0..H_{N-1} | B |
     B_blinding]: the source rows upload once per proof size; every prover
-    and verifier MSM against it is one `msm_many` launch chain.  Digit-level
-    and on-device-encoding entry points come with the device vectors."""
+    and verifier MSM against it is one `msm_many` launch chain, and the
+    device IPA (ops/ipa_fused) runs `msm_digits_t` on `src` directly
+    (`supports_digits`).  On-device point encoding (`msm_enc`) comes with
+    the device commitments."""
 
     __slots__ = ("N", "m", "src")
-    supports_digits = False
+    supports_digits = True
 
     def __init__(self, G, H, B, B_blinding, device):
         assert len(H) == len(G)

@@ -4,9 +4,14 @@
 
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
 then --reps times warm (end-to-end wall times), then once warm with every
-MSM stage timed on the host clock around a `torch.cuda.synchronize()`
-(digit recode, plan incl. its count readback, each kernel, the result
-readback), then once warm under torch.profiler for the device busy time:
+stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
+stages (host digit recode, plan incl. its count readback, each kernel, the
+result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
+table) and the device IPA's (`ipa_fused.create` in all, its folds
+`ipa_fold.materialize`, its challenge folds `_fold` and digit builds
+`_scalars`).  Stages nest: an IPA's MSMs are inside `ipa_fused.create`,
+and the kernels inside their MSM.  Then once warm under torch.profiler
+for the device busy time:
 the union of the card's own activity intervals (kernels, copies, memsets),
 so no host operator is counted beside the device work it issued.
 Prints one JSON object (also written to --out).
@@ -57,7 +62,8 @@ def main(argv=None) -> int:
         return 1
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
     from bulletproof_gadgets_tpu_torch.lang.verify import verify
-    from bulletproof_gadgets_tpu_torch.ops import engine, msm_serial as ms
+    from bulletproof_gadgets_tpu_torch.ops import (
+        engine, ipa_fold, ipa_fused, msm_serial as ms)
     from bulletproof_gadgets_tpu_torch.utils import rng
 
     with open(os.path.join(ROOT, "tests", "port_pins.json")) as f:
@@ -86,24 +92,29 @@ def main(argv=None) -> int:
     def timed(name, fn):
         @functools.wraps(fn)
         def wrapper(*a, **kw):
+            key = name if name != "msm_digits_t" else f"{name}[{a[2]}]"
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            stage_s[name] = stage_s.get(name, 0.0) + time.perf_counter() - t0
+            stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
             return out
         return wrapper
 
-    names = ("signed_digits", "plan", "bucket_accumulate", "bucket_merge",
-             "window_sums", "horner", "points_from_cols", "msm_many")
-    saved = {n: getattr(ms, n) for n in names}
-    for n in names:
-        setattr(ms, n, timed(n, saved[n]))
+    stages = [(ms, n) for n in (
+        "signed_digits", "plan", "bucket_accumulate", "bucket_merge",
+        "window_sums", "horner", "points_from_cols", "msm_many",
+        "msm_digits_t")] + [(ipa_fused, "create"), (ipa_fused, "_fold"),
+                            (ipa_fused, "_scalars"), (ipa_fold, "materialize")]
+    saved = [(mod, n, getattr(mod, n)) for mod, n in stages]
+    for mod, n, fn in saved:
+        setattr(mod, n, timed(n if mod is ms else
+                              f"{mod.__name__.rsplit('.', 1)[1]}.{n}", fn))
     launches0 = dict(ms.LAUNCHES)
     prove_s, verify_s = run()
-    for n in names:
-        setattr(ms, n, saved[n])
-    msms = ms.LAUNCHES["horner"] - launches0["horner"]
+    for mod, n, fn in saved:
+        setattr(mod, n, fn)
+    launches = {k: ms.LAUNCHES[k] - launches0[k] for k in ms.LAUNCHES}
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -124,7 +135,8 @@ def main(argv=None) -> int:
            "warm_verify_s": sorted(w[1] for w in warm),
            "instrumented_prove_s": prove_s,
            "instrumented_verify_s": verify_s,
-           "msms": msms, "stage_s": stage_s,
+           "msms": launches["horner"], "launches": launches,
+           "stage_s": stage_s,
            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / 1e3 / wall,
            "top_device_ms": top}

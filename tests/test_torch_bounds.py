@@ -1,7 +1,9 @@
 """Limb bounds of the port's field layout (ops/fp, csrc/field.cuh).
 
 Runs interval arithmetic over the exact op sequences of ops/curve.madd,
-padd and dbl (the same functions, given an interval field) and proves, for
+padd and dbl, and of the table fold (ops/ipa_fold, csrc/ipa_fold.cu:
+multiples, cached forms and their negations, padd_cached, the inversion's
+squarings) — the same functions, given an interval field — and proves, for
 any input values:
   * no int64 overflows: each 32x32 -> 64-bit product (times 2 for odd*odd
     limbs, times 19 for wrapped columns in the plain version), each column
@@ -46,6 +48,9 @@ class IntervalField:
 
     def sub(self, a, b):
         return self._lazy([(x[0] - y[1], x[1] - y[0]) for x, y in zip(a, b)])
+
+    def neg(self, a):
+        return self._lazy([(-x[1], -x[0]) for x in a])
 
     def d2_like(self, _):
         return tuple((v, v) for v in fp.D2)
@@ -152,3 +157,40 @@ def test_interval_carry_matches_plain_carry():
     out = fp.carry(corners)
     for i, (lo, hi) in enumerate(bounds):
         assert all(lo <= int(v) <= hi for v in out[i])
+
+
+def test_fold_sequences_keep_the_bounds():
+    """The fold ladder's sequences: the multiples 1P..8P of a canonical
+    affine row by dbl and madd, their cached forms (lazy y - x, y + x, 2z;
+    carried 2d*t), the negated cached forms, the identity's cached form,
+    padd_cached into the accumulator, and the inversion's products of
+    carried values.  The carried bound reaches a fixed point, every int64
+    column sum stays under 2^62, and carried limbs and their negations are
+    inside canonical()'s input range."""
+    F = IntervalField()
+    row = (CANON,) * 3
+    one = tuple((1, 1) if i == 0 else (0, 0) for i in range(fp.NL))
+    zero = ((0, 0),) * fp.NL
+    first = (F.sub(CANON, CANON), F.add(CANON, CANON), F.add(one, one),
+             CANON)                               # cached 1P from the row
+    ident = curve.to_cached((zero, one, one, zero), F=F)
+    state = (CANON, CANON, one, zero)
+    for _ in range(20):
+        new = _hull_pt(state, curve.dbl(state, F=F))
+        new = _hull_pt(new, curve.madd(new, row, F=F))
+        cached = curve.to_cached(new, F=F)
+        for c in (curve.neg_cached(cached, F=F), first,
+                  curve.neg_cached(first, F=F), ident):
+            cached = _hull_pt(cached, c)
+        new = _hull_pt(new, curve.padd_cached(new, cached, F=F))
+        new = tuple(_hull(c, F.mul(c, c)) for c in new)    # inversion
+        if new == state:
+            break
+        state = new
+    else:
+        raise AssertionError("no fixed point")
+    for coord in state:
+        for lo, hi in coord:
+            assert max(-lo, hi) < (1 << 28) - 152        # also negated
+    assert F.max_abs["col64"] < 1 << 62
+    assert F.max_abs["lazy32"] < 1 << 29

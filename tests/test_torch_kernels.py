@@ -17,7 +17,9 @@ import torch
 
 from bulletproof_gadgets_tpu_torch.core.gens import BulletproofGens
 from bulletproof_gadgets_tpu_torch.core.msm import msm_host
+from bulletproof_gadgets_tpu_torch.core.gens import PedersenGens
 from bulletproof_gadgets_tpu_torch.core.scalar import L
+from bulletproof_gadgets_tpu_torch.ops import flvec, ipa_fold
 from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +91,23 @@ def test_wrapper_rejects_bad_tensors(stage_inputs):
         ms.bucket_accumulate(src, stage_inputs["idx"].t())
     with pytest.raises(ValueError):
         ms.bucket_accumulate(src.cpu(), stage_inputs["idx"])
+
+
+def test_ladder_fold_equals_plain(cuda, monkeypatch):
+    """K6 on a small fold (n_t = 256, d = 4: 2 x 16 outputs of 16 terms)
+    against its plain version on the card, through materialize."""
+    n_t, d = 256, 4
+    gens = BulletproofGens(n_t)
+    pc = PedersenGens.default()
+    pts = list(gens.G(n_t)) + list(gens.H(n_t)) + [pc.B, pc.B_blinding]
+    src = torch.from_numpy(ms.prep_source(pts)).to(cuda)
+    r = random.Random(6)
+    gc, hc = (flvec.to_mont([r.randrange(L) for _ in range(n_t)], cuda)
+              for _ in range(2))
+    before = ms.LAUNCHES["ladder_fold"]
+    got = ipa_fold.materialize(src, gc, hc, n_t, d, len(pts))
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["ladder_fold"] == before + 1
+    monkeypatch.setattr(ipa_fold, "ladder_fold", ipa_fold.ladder_fold_plain)
+    want = ipa_fold.materialize(src, gc, hc, n_t, d, len(pts))
+    assert got.is_cuda and torch.equal(got, want)   # canonical rows, exact

@@ -6,7 +6,8 @@ never import JAX.
 The port is registered on the CPU (its kernel wrappers run their plain
 versions) and, for the 16-bit BOUND, forced onto its device-table path with
 `core.msm.set_table_min_size(8)`; the JAX package proves the same statement
-on its host path (a 66-point table is under its device threshold).
+on its host path (a 66-point table is under its device threshold).  On the
+device table the port's inner-product argument runs ops/ipa_fused.
 """
 import hashlib
 import json
@@ -24,7 +25,7 @@ from bulletproof_gadgets_tpu.utils import rng as jax_rng
 from bulletproof_gadgets_tpu_torch.core import msm as port_msm
 from bulletproof_gadgets_tpu_torch.lang.prove import prove
 from bulletproof_gadgets_tpu_torch.lang.verify import verify
-from bulletproof_gadgets_tpu_torch.ops import engine, msm_serial
+from bulletproof_gadgets_tpu_torch.ops import engine, ipa_fused, msm_serial
 from bulletproof_gadgets_tpu_torch.utils import rng
 
 torch.set_num_threads(1)
@@ -40,6 +41,19 @@ def port_on_cpu():
     port_msm.set_table_min_size(8)
     yield
     port_msm.set_table_min_size(None)
+
+
+@pytest.fixture
+def ipa_calls(monkeypatch):
+    """Records every ops/ipa_fused.create call (its n)."""
+    calls = []
+    real = ipa_fused.create
+
+    def spy(transcript, table, w, G_factors, *args, **kw):
+        calls.append(len(G_factors))
+        return real(transcript, table, w, G_factors, *args, **kw)
+    monkeypatch.setattr(ipa_fused, "create", spy)
+    return calls
 
 
 def _prove(prove_fn, seed_mod, name):
@@ -58,10 +72,11 @@ def _sha(b):
     return hashlib.sha256(b).hexdigest()
 
 
-def test_bound16_matches_jax_byte_for_byte(port_on_cpu):
+def test_bound16_matches_jax_byte_for_byte(port_on_cpu, ipa_calls):
     st = PINS["statements"]["bound16"]
     before = dict(msm_serial.LAUNCHES)
     port_proof, port_coms = _prove(prove, rng, "bound16")
+    assert ipa_calls == [st["gens"]]          # the device IPA ran
     jax_proof, jax_coms = _prove(jax_prove, jax_rng, "bound16")
     assert port_proof == jax_proof
     assert port_coms == jax_coms
@@ -77,11 +92,39 @@ def test_bound16_matches_jax_byte_for_byte(port_on_cpu):
     assert not verify(*args, bytes(bad), port_coms, st["gadgets"])
 
 
-def test_less_than_matches_its_pin(port_on_cpu):
+def test_less_than_matches_its_pin(port_on_cpu, ipa_calls):
     st = PINS["statements"]["less_than"]
     proof, coms = _prove(prove, rng, "less_than")
+    assert ipa_calls == [st["gens"]]
     assert _sha(proof) == st["proof_sha256"]
     assert _sha(coms.encode()) == st["coms_sha256"]
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """With no device given and none registered, prove and verify ask for
+    CUDA: where it is missing they raise and never run on the CPU;
+    device="cpu" runs the plain versions."""
+    st = PINS["statements"]["bound16"]
+    args = ("bound16", st["instance"])
+    monkeypatch.setattr(engine, "_device", None)
+    if torch.cuda.is_available():
+        _prove(prove, rng, "bound16")
+        assert engine._device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prove(*args, st["witness"], st["gadgets"], [])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        verify(*args, b"", "", st["gadgets"])
+    assert engine._device is None
+    rng.set_seed(PINS["seed"])
+    coms = []
+    try:
+        proof, _ = prove(*args, st["witness"], st["gadgets"], coms,
+                         device="cpu")
+    finally:
+        rng.set_seed(None)
+    assert _sha(proof) == st["proof_sha256"]
+    assert verify(*args, proof, "".join(coms), st["gadgets"])
 
 
 def test_cli_round_trip_and_device_choice(tmp_path):
