@@ -22,9 +22,12 @@ import threading
 
 from .ristretto import RistrettoPoint, RISTRETTO_BASEPOINT
 
+# inside the package (git ignores it), so a run writes nothing outside its
+# checkout
 _CACHE_DIR = os.environ.get(
     "BPG_TORCH_CACHE",
-    os.path.join(os.path.expanduser("~"), ".cache", "bpg_torch"))
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "_cache"))
 
 
 class _CombTable:

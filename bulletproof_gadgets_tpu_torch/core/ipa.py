@@ -48,7 +48,9 @@ class InnerProductProof:
         G, H: lists of RistrettoPoint (length n, power of two); a, b:
         lists of Scalar; G_factors/H_factors: Scalar (dalek's first-round
         unrolled H' = y^-i H multiplication, folded here into the initial
-        coefficient vectors).
+        coefficient vectors).  With a device table, a and b may also be
+        device std rows and G_factors/H_factors device Montgomery rows
+        (ops/fl, [n, NW]).
 
         table/w: optional generator table [G | H | B | B_blinding]
         (core.msm.generator_table) whose G/H slots are exactly the G/H
@@ -67,11 +69,14 @@ class InnerProductProof:
         from .scalar import L as _q
         if (table is not None and getattr(table, "supports_digits", False)
                 and n_full > 1):
+            # Scalar lists go in as ints; the prover's device vectors
+            # (ops/prover_device) go in as they are
             from ..ops import ipa_fused
+            ints = lambda v: ([s.v % _q for s in v]          # noqa: E731
+                              if isinstance(v, list) else v)
             L_vec, R_vec, a0, b0 = ipa_fused.create(
-                transcript, table, w.v % _q, [s.v % _q for s in G_factors],
-                [s.v % _q for s in H_factors], [s.v % _q for s in a],
-                [s.v % _q for s in b])
+                transcript, table, w.v % _q, ints(G_factors),
+                ints(H_factors), ints(a), ints(b))
             return InnerProductProof(L_vec, R_vec, Scalar(a0), Scalar(b0))
 
         # Hot path: raw-int modular arithmetic (Scalar wrappers only at the

@@ -25,9 +25,10 @@ def set_backend(backend, min_size: int = 64) -> None:
 
 
 def set_table_factory(factory) -> None:
-    """factory(G, H, B, B_blinding) -> object with
-    msm_many(vectors: list[list[int]]) -> list[RistrettoPoint] over the
-    fixed point table [G | H | B | B_blinding]."""
+    """factory(G, H, B, B_blinding) -> a table over the fixed points
+    [G | H | B | B_blinding]: with `supports_digits` (ops/msm_serial
+    GeneratorTable) it takes device digits (`msm_digits`); else it has
+    msm_many(vectors: list[list[int]]) -> list[RistrettoPoint]."""
     global _table_factory
     _table_factory = factory
 

@@ -9,11 +9,14 @@ two-interpretation property (same assemble() code for prover with
 Some(assignment) and verifier with None) is preserved.
 
 Host/Device split: this module is the *sequencing* layer — the constraint
-log, Fiat-Shamir interleaving and per-phase orchestration live here.  In
-this package the flattening, the l(x)/r(x) vectors and the IPA loop run on
-the host; every generator-table MSM (A_I/A_O/S, each IPA round's L/R, the
-verifier's table part) goes through `table.msm_many` on the registered
-device table (ops/msm_serial.GeneratorTable).
+log, Fiat-Shamir interleaving and per-phase orchestration live here.  On a
+device table (ops/msm_serial.GeneratorTable, `supports_digits`) the O(n)
+work runs on the device: the A_I/A_O/S digits, the flattening
+(ops/flatten, host loop below its size rule), the t-poly and l(x)/r(x)
+vectors (ops/prover_device), the inner-product argument (ops/ipa_fused)
+and the verifier's table scalars (ops/verifier_device); every table MSM
+is `table.msm_digits`.  On a host table (core/msm._HostTable) the host
+loops below run: they are the oracle.
 
 The reference never uses randomized (2-phase) constraints, so this
 implementation is 1-phase: A_I2/A_O2/S2 are identity and the proof
@@ -194,8 +197,10 @@ class Prover:
 
     # -- proving -----------------------------------------------------------
     def prove(self, bp_gens) -> R1CSProof:
-        """Single proof, host vectors; every table MSM is one
-        `table.msm_many` call over the stacked scalar vectors."""
+        """Single proof.  On a device table (`supports_digits`) the O(n)
+        vectors stay on the device and every table MSM is one
+        `table.msm_digits`; on a host table the host loops run and every
+        table MSM is one `table.msm_many` over the stacked vectors."""
         t = self.transcript
         t.append_u64(b"m", len(self.v))
 
@@ -221,16 +226,28 @@ class Prover:
         s_L1 = rng.random_scalars(n1)
         s_R1 = rng.random_scalars(n1)
 
-        pad1 = padded_n1 - n1
-        zpad = [0] * pad1
-        zeros_N = [0] * padded_n1
-        v_AI = ([s.v for s in self.a_L] + zpad
-                + [s.v for s in self.a_R] + zpad + [0, i_blinding1.v])
-        v_AO = ([s.v for s in self.a_O] + zpad
-                + zeros_N + [0, o_blinding1.v])
-        v_S = ([s.v for s in s_L1] + zpad
-               + [s.v for s in s_R1] + zpad + [0, s_blinding1.v])
-        p_AI, p_AO, p_S = table.msm_many([v_AI, v_AO, v_S])
+        device = getattr(table, "supports_digits", False)
+        if device:
+            # one upload of the five vectors; the digits recode on device
+            from ..ops import prover_device
+            dev = table.src.device
+            wit = prover_device.upload(
+                [[s.v for s in vec] for vec in
+                 (self.a_L, self.a_R, self.a_O, s_L1, s_R1)], dev)
+            p_AI, p_AO, p_S = table.msm_digits(
+                prover_device.commitment_digits(
+                    *wit, (i_blinding1.v, o_blinding1.v, s_blinding1.v),
+                    padded_n1))
+        else:
+            zpad = [0] * (padded_n1 - n1)
+            zeros_N = [0] * padded_n1
+            v_AI = ([s.v for s in self.a_L] + zpad
+                    + [s.v for s in self.a_R] + zpad + [0, i_blinding1.v])
+            v_AO = ([s.v for s in self.a_O] + zpad
+                    + zeros_N + [0, o_blinding1.v])
+            v_S = ([s.v for s in s_L1] + zpad
+                   + [s.v for s in s_R1] + zpad + [0, s_blinding1.v])
+            p_AI, p_AO, p_S = table.msm_many([v_AI, v_AO, v_S])
         A_I1 = p_AI.compress()
         A_O1 = p_AO.compress()
         S1 = p_S.compress()
@@ -262,29 +279,44 @@ class Prover:
 
         y_inv = y.invert()
 
-        wL, wR, wO, wV = self._flattened_constraints(z)
+        flat = None
+        if device:
+            from ..ops.flatten import flatten
+            flat = flatten(self.constraints, n, len(self.v), z.v % L_MOD,
+                           False, dev)
+        if flat is not None:
+            wL, wR, wO, wV = flat.wL, flat.wR, flat.wO, flat.wV
+        else:
+            wL, wR, wO, wV = self._flattened_constraints(z)
 
-        exp_y_vec = exp_iter(y, max(n, 1))
-        exp_y_inv = exp_iter(y_inv, padded_n)
-        wLs = [Scalar(v) for v in wL]
-        wRs = [Scalar(v) for v in wR]
-        wOs = [Scalar(v) for v in wO]
+        if device:
+            # the O(n) polynomial vectors on the device; l/r stay there
+            pv = prover_device.ProverVectors(
+                *wit, wL, wR, wO, y.v % L_MOD, y_inv.v % L_MOD, padded_n,
+                dev)
+            t_poly = _Poly6(*(Scalar(v) for v in pv.t_poly()))
+        else:
+            exp_y_vec = exp_iter(y, max(n, 1))
+            exp_y_inv = exp_iter(y_inv, padded_n)
+            wLs = [Scalar(v) for v in wL]
+            wRs = [Scalar(v) for v in wR]
+            wOs = [Scalar(v) for v in wO]
 
-        l1 = [self.a_L[i] + exp_y_inv[i] * wRs[i] for i in range(n)]
-        l2 = list(self.a_O)
-        l3 = list(s_L1)
-        r0 = [wOs[i] - exp_y_vec[i] for i in range(n)]
-        r1 = [exp_y_vec[i] * self.a_R[i] + wLs[i] for i in range(n)]
-        r3 = [exp_y_vec[i] * s_R1[i] for i in range(n)]
+            l1 = [self.a_L[i] + exp_y_inv[i] * wRs[i] for i in range(n)]
+            l2 = list(self.a_O)
+            l3 = list(s_L1)
+            r0 = [wOs[i] - exp_y_vec[i] for i in range(n)]
+            r1 = [exp_y_vec[i] * self.a_R[i] + wLs[i] for i in range(n)]
+            r3 = [exp_y_vec[i] * s_R1[i] for i in range(n)]
 
-        t_poly = _Poly6(
-            _inner(l1, r0),
-            _inner(l1, r1) + _inner(l2, r0),
-            _inner(l2, r1) + _inner(l3, r0),
-            _inner(l1, r3) + _inner(l3, r1),
-            _inner(l2, r3),
-            _inner(l3, r3),
-        )
+            t_poly = _Poly6(
+                _inner(l1, r0),
+                _inner(l1, r1) + _inner(l2, r0),
+                _inner(l2, r1) + _inner(l3, r0),
+                _inner(l1, r3) + _inner(l3, r1),
+                _inner(l2, r3),
+                _inner(l3, r3),
+            )
 
         t_1_blinding = rng.random_scalar()
         t_3_blinding = rng.random_scalar()
@@ -316,12 +348,15 @@ class Prover:
 
         xx = x * x
         xxx = xx * x
-        l_vec = [l1[i] * x + l2[i] * xx + l3[i] * xxx for i in range(n)]
-        l_vec += [Scalar.zero()] * pad
-        r_vec = [r0[i] + r1[i] * x + r3[i] * xxx for i in range(n)]
-        exp_y_pad = exp_iter(y, padded_n + 1)
-        for i in range(n, padded_n):
-            r_vec.append(-exp_y_pad[i])
+        if device:
+            l_vec, r_vec = pv.lr(x.v % L_MOD)     # device [padded_n, NW]
+        else:
+            l_vec = [l1[i] * x + l2[i] * xx + l3[i] * xxx for i in range(n)]
+            l_vec += [Scalar.zero()] * pad
+            r_vec = [r0[i] + r1[i] * x + r3[i] * xxx for i in range(n)]
+            exp_y_pad = exp_iter(y, padded_n + 1)
+            for i in range(n, padded_n):
+                r_vec.append(-exp_y_pad[i])
 
         i_blinding = i_blinding1 + u * i_blinding2
         o_blinding = o_blinding1 + u * o_blinding2
@@ -335,8 +370,12 @@ class Prover:
         w = challenge_scalar(t, b"w")
         Q = self.pc_gens.B.scalar_mul(w.v)
 
-        G_factors = ([Scalar.one()] * n1 + [u] * (n2 + pad))
-        H_factors = [exp_y_inv[i] * G_factors[i] for i in range(padded_n)]
+        if device:
+            G_factors, H_factors = pv.factors(n1, u.v % L_MOD)
+        else:
+            G_factors = ([Scalar.one()] * n1 + [u] * (n2 + pad))
+            H_factors = [exp_y_inv[i] * G_factors[i]
+                         for i in range(padded_n)]
 
         assert padded_n == padded_n1
         ipp = InnerProductProof.create(
@@ -491,37 +530,65 @@ class Verifier:
         # dynamic MSM.
         table = generator_table(bp_gens.G(padded_n), bp_gens.H(padded_n),
                                 pc_gens.B, pc_gens.B_blinding)
-        wL, wR, wO, wV, wc = self._flattened_constraints(z)
-        u_sq, u_inv_sq, s = \
-            proof.ipp_proof.verification_scalars(padded_n, t)
-        y_inv_vec = exp_iter(y_inv, padded_n)
-        wLs = [Scalar(v) for v in wL]
-        wRs = [Scalar(v) for v in wR]
-        wOs = [Scalar(v) for v in wO]
-        yneg_wR = [wRs[i] * y_inv_vec[i] for i in range(n)] + \
-                  [Scalar.zero()] * pad
+        if getattr(table, "supports_digits", False):
+            # the O(n) scalars on the device (ops/verifier_device); the host
+            # computes only delta and the two B-slot coefficients
+            from ..ops import fl, flvec, verifier_device
+            from ..ops.flatten import flatten
+            dev = table.src.device
+            u_sq, u_inv_sq, allinv = \
+                proof.ipp_proof.verification_challenges(padded_n, t)
+            flat = flatten(self.constraints, n, len(self.V), z.v % L_MOD,
+                           True, dev)
+            if flat is not None:
+                wL_d, wR_d, wO_d = flat.wL, flat.wR, flat.wO
+                wV, wc = flat.wV, flat.wc
+            else:
+                wL, wR, wO, wV, wc = self._flattened_constraints(z)
+                wL_d, wR_d, wO_d = fl.to_limbs(wL + wR + wO, dev).view(
+                    3, n, fl.NW).unbind(0)
+            yinv_m = flvec.powers_mont(y_inv.v % L_MOD, padded_n, dev)
+            ynw_d = fl.mont_mul(wR_d, yinv_m[:n])
+            delta = fl.limbs_to_ints(flvec.inner(ynw_d, wL_d))[0]
+            c_B = (w.v * (proof.t_x.v - a.v * b.v)
+                   + r.v * (xx.v * (wc + delta) - proof.t_x.v)) % L_MOD
+            c_Bb = (-proof.e_blinding.v - r.v * proof.t_x_blinding.v) % L_MOD
+            (table_part,) = table.msm_digits(verifier_device.table_digits_dev(
+                ynw_d, wL_d, wO_d, yinv_m, x.v, a.v, b.v, u.v, allinv.v,
+                [v.v for v in u_sq], n, n1, padded_n, c_B, c_Bb))
+        else:
+            wL, wR, wO, wV, wc = self._flattened_constraints(z)
+            u_sq, u_inv_sq, s = \
+                proof.ipp_proof.verification_scalars(padded_n, t)
+            y_inv_vec = exp_iter(y_inv, padded_n)
+            wLs = [Scalar(v) for v in wL]
+            wRs = [Scalar(v) for v in wR]
+            wOs = [Scalar(v) for v in wO]
+            yneg_wR = [wRs[i] * y_inv_vec[i] for i in range(n)] + \
+                      [Scalar.zero()] * pad
 
-        delta_s = _inner(yneg_wR[:n], wLs)
+            delta_s = _inner(yneg_wR[:n], wLs)
 
-        u_or_1 = [Scalar.one()] * n1 + [u] * (n2 + pad)
+            u_or_1 = [Scalar.one()] * n1 + [u] * (n2 + pad)
 
-        g_scalars = [u_or_1[i] * (x * yneg_wR[i] - a * s[i])
-                     for i in range(padded_n)]
-        s_rev = list(reversed(s))
-        wL_pad = wLs + [Scalar.zero()] * pad
-        wO_pad = wOs + [Scalar.zero()] * pad
-        h_scalars = [
-            u_or_1[i] * (y_inv_vec[i] * (x * wL_pad[i] + wO_pad[i]
-                                         - b * s_rev[i]) - Scalar.one())
-            for i in range(padded_n)]
+            g_scalars = [u_or_1[i] * (x * yneg_wR[i] - a * s[i])
+                         for i in range(padded_n)]
+            s_rev = list(reversed(s))
+            wL_pad = wLs + [Scalar.zero()] * pad
+            wO_pad = wOs + [Scalar.zero()] * pad
+            h_scalars = [
+                u_or_1[i] * (y_inv_vec[i] * (x * wL_pad[i] + wO_pad[i]
+                                             - b * s_rev[i]) - Scalar.one())
+                for i in range(padded_n)]
 
-        table_vec = ([sc.v for sc in g_scalars]
-                     + [sc.v for sc in h_scalars]
-                     + [(w * (proof.t_x - a * b)
-                         + r * (xx * (Scalar(wc) + delta_s)
-                                - proof.t_x)).v]
-                     + [(-proof.e_blinding - r * proof.t_x_blinding).v])
-        (table_part,) = table.msm_many([table_vec])
+            table_vec = ([sc.v for sc in g_scalars]
+                         + [sc.v for sc in h_scalars]
+                         + [(w * (proof.t_x - a * b)
+                             + r * (xx * (Scalar(wc) + delta_s)
+                                    - proof.t_x)).v]
+                         + [(-proof.e_blinding
+                             - r * proof.t_x_blinding).v])
+            (table_part,) = table.msm_many([table_vec])
 
         dyn_scalars = ([x, xx, xxx, u * x, u * xx, u * xxx]
                        + [Scalar(wVi) * rxx for wVi in wV]

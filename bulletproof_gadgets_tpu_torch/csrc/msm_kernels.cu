@@ -1,6 +1,8 @@
-// The four kernels of the serial-bucket MSM (ops/msm_serial.py), with a
-// plain C interface for ctypes.  Each launcher runs on the given stream,
-// allocates nothing, and returns cudaGetLastError() (0 = launched).
+// The kernels of the serial-bucket MSM (ops/msm_serial.py): the four stages
+// of one MSM (K1, K3, K4, K5) and the lane-wise add that combines the
+// window sums of point chunks (K7), with a plain C interface for ctypes.
+// Each launcher runs on the given stream, allocates nothing, and returns
+// cudaGetLastError() (0 = launched).
 //
 // Point arrays use the [4, 10, n] int32 layout of field.cuh; source rows
 // are int32 [S, 32]: x limbs 0..9, y 10..19, t2d = x*y*2d 20..29, 2 pad.
@@ -98,6 +100,15 @@ horner_kernel(const int32_t* __restrict__ ws, int k, int nwin, int c,
   ge_store(out, k, v, acc);
 }
 
+// K7: lane i of out = p[lane i] + q[lane i] (unified addition).
+__global__ void __launch_bounds__(kThreads)
+point_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
+                 int n, int32_t* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  ge_store(out, n, i, ge_add(ge_load(p, n, i), ge_load(q, n, i)));
+}
+
 }  // namespace
 
 extern "C" {
@@ -129,6 +140,13 @@ int bpg_horner(const void* ws, int k, int nwin, int c, void* out,
                void* stream) {
   horner_kernel<<<blocks_for(k), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)ws, k, nwin, c, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+int bpg_point_add(const void* p, const void* q, int n, void* out,
+                  void* stream) {
+  point_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)p, (const int32_t*)q, n, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -35,10 +35,11 @@ _FUNCS = {
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
     "bpg_ladder_fold": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "bpg_point_add": [_P, _P, _I, _P, _P],
 }
 
 LAUNCHES = {"bucket_accumulate": 0, "bucket_merge": 0, "window_sums": 0,
-            "horner": 0, "ladder_fold": 0}
+            "horner": 0, "ladder_fold": 0, "point_add": 0}
 
 _LIB = None
 BUILD_LOG = ""

@@ -18,9 +18,11 @@ sequential field muls of ~10 launches each, and f1600 is 24 rounds of ~30
 ops per permutation, thousands of launches per round against a host step of
 about a millisecond.
 
-Not ported: the point-chunked rounds (`_round_combine`, which needs K7) and
-`create_batched` (the batched-proving slice).  Byte output is identical to
-the host loop of core/ipa.py (tests/test_torch_ipa.py).
+Rounds over a table of more than msm_serial.POINT_CHUNK points run point
+chunked inside msm_serial.msm_digits_t (its K7 combine), so there is no
+`_round_combine` here.  Not ported: `create_batched` (the batched-proving
+slice).  Byte output is identical to the host loop of core/ipa.py
+(tests/test_torch_ipa.py).
 """
 import torch
 
@@ -36,15 +38,18 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
     """The IPA rounds over the device table `table` (msm_serial
     GeneratorTable with N = len(a)).  `transcript` is the host transcript
     right after the ipp domain separator; the L/R absorbs and challenges
-    go into it.  w_scalar, G_factors, H_factors, a, b: ints.  Returns
-    (L_vec, R_vec, a0, b0) with L/R compressed and a0, b0 canonical ints."""
+    go into it.  w_scalar: int; a, b: ints or device std rows [n, NW];
+    G_factors, H_factors: ints or device Montgomery rows [n, NW] (ops/fl).
+    Returns (L_vec, R_vec, a0, b0) with L/R compressed and a0, b0
+    canonical ints."""
     dev = table.src.device
     n_full = len(a)
     assert table.N == n_full and n_full > 1
-    a_d = fl.to_limbs([s % L for s in a], dev)
-    b_d = fl.to_limbs([s % L for s in b], dev)
-    gc = flvec.to_mont(G_factors, dev)
-    hc = flvec.to_mont(H_factors, dev)
+    std = lambda v: (v if isinstance(v, torch.Tensor)            # noqa: E731
+                     else fl.to_limbs([s % L for s in v], dev))
+    mont = lambda v: (v if isinstance(v, torch.Tensor)           # noqa: E731
+                      else flvec.to_mont(v, dev))
+    a_d, b_d, gc, hc = std(a), std(b), mont(G_factors), mont(H_factors)
     wr2 = fl.to_limbs([w_scalar * fl.R * fl.R % L], dev)[0]
     masks = round_masks(n_full, dev)
     src, n_seg, seg_masks, local = table.src, n_full, masks, 0

@@ -30,14 +30,25 @@ construction of `plan` over a [2n+1]-row source (checked on the host in
 `msm_digits_t`), so the wrappers read nothing back; the plain versions
 check them.
 
+Point chunks: a source of more than POINT_CHUNK = 2^17 points is cut into
+contiguous chunks of at most 2^17 points.  Each chunk runs plan -> K1 -> K3
+-> K4 to its [4, NL, k*W] window sums, with idx pointing into the one
+[2n+1, ROW] source (rows lo..hi, n+lo..n+hi and the identity 2n: no
+per-chunk copy), and the window sums of the chunks are added lane-wise by
+K7 (`point_add`, D-1 launches for D chunks) before one K5.  On the H100 a
+chunk's two row ranges (2 x 16 MB) fit in the 50 MB L2, where a 2^17-gens
+table's rows (64 MB) do not (a 2^16-gens table fits whole: there K1's time
+per entry is the same with and without chunks, PERF.md).
+
 Two entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
-signed digits already on the device (the device IPA, ops/ipa_fused) and
-returns the points as device columns, read back by the caller.
+signed digits already on the device (the commitments, the device IPA and
+the verifier's table MSM) and returns the points as device columns, read
+back by the caller.
 
 Not ported, because they serve the TPU: the static tight/safe plans and
 their overflow re-run (remote round trips), the Mosaic/VMEM constants (pool
-cap, lane padding, round chunks, scan width caps), point chunking, and the
-round-chunked accumulator-carrying kernel (ROADMAP Queue 2, K2).
+cap, lane padding, round chunks, scan width caps), and the round-chunked
+accumulator-carrying kernel (ROADMAP Queue 2, K2).
 """
 import numpy as np
 import torch
@@ -59,6 +70,7 @@ _2D = 2 * _D % _P
 # blocks per SM on 132 SMs want >= 64k) whatever the table size.
 _LANE_TARGET = 1 << 16
 _MIN_ROUNDS = 4
+POINT_CHUNK = 1 << 17     # most source points per chunk (msm_digits_t)
 
 LAUNCHES = native.LAUNCHES       # every kernel's count, K6's included
 
@@ -219,21 +231,52 @@ def horner_plain(ws, k):
 
 
 # ---------------------------------------------------------------------------
+# K7: lane-wise add (the chunk combine)
+
+def point_add(p, q):
+    """p, q int32 [4, NL, n] -> int32 [4, NL, n], lane i = p_i + q_i.
+
+    Replaces bulletproof_gadgets_tpu/ops/pallas_curve.py:_padd_kernel
+    (padd_cols, 512-lane blocks).  Bound on the H100: at the chunk combine's
+    k*W = 32-96 lanes, the latency of one unified add (9 field muls) by one
+    thread; at wide n, the 9 field muls per lane against 480 bytes moved.
+    Design: one thread per lane, loads and stores coalesced across the
+    warp (consecutive lanes are consecutive addresses of every limb)."""
+    native.check(p, "p", (4, NL, None))
+    native.check(q, "q", tuple(p.shape))
+    lib = native.kernels_for(p, q)
+    if lib is None:
+        return point_add_plain(p, q)
+    n = p.shape[2]
+    out = torch.empty_like(p)
+    if n == 0:
+        return out
+    native.launched("point_add", lib.bpg_point_add(
+        p.data_ptr(), q.data_ptr(), n, out.data_ptr(), native.stream(p)))
+    return out
+
+
+def point_add_plain(p, q):
+    return curve.stack(curve.padd(curve.unstack(p), curve.unstack(q)))
+
+
+# ---------------------------------------------------------------------------
 # planner
 
-def plan(digits_t, n: int):
-    """digits_t [k*W, n] signed digits (device) -> (idx int32 [T, P],
-    offs int32 [M], sub int32 [M]) with M = k*W*NB.  Identity row = 2n
-    (source layout [P | -P | identity])."""
+def plan(digits_t, n: int, lo: int = 0):
+    """digits_t [k*W, h] signed digits (device) of the source points lo ..
+    lo+h-1 of an n-point source -> (idx int32 [T, P], offs int32 [M], sub
+    int32 [M]) with M = k*W*NB.  Source layout [P | -P | identity]: point
+    lo+i is row lo+i, its negation row n+lo+i, the identity row 2n."""
     dev = digits_t.device
-    wt = digits_t.shape[0]
+    wt, h = digits_t.shape
     m = wt * NB
     d = digits_t.to(torch.int32)
     a = d.abs()
     live = a > 0
     key = (torch.arange(wt, dtype=torch.int32, device=dev)[:, None] * NB
            + a - 1)[live]
-    i = torch.arange(n, dtype=torch.int32, device=dev)[None, :]
+    i = torch.arange(lo, lo + h, dtype=torch.int32, device=dev)[None, :]
     row = torch.where(d < 0, i + n, i)[live]
     counts = torch.bincount(key, minlength=m).cpu().numpy()   # the readback
     sv = (torch.sort((key.to(torch.int64) << 32) | row.to(torch.int64))
@@ -301,19 +344,25 @@ def points_from_cols(cols):
     return [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
 
 
-def msm_digits_t(digits_t, src, n: int):
+def msm_digits_t(digits_t, src, n: int, point_chunk: int = None):
     """digits_t int8 [k*W, n] on src's device over the rows src -> int32
-    [4, NL, k] extended points (no readback but plan's counts)."""
+    [4, NL, k] extended points (no readback but plan's counts, one per
+    chunk).  Sources of more than `point_chunk` (default POINT_CHUNK)
+    points run in chunks whose window sums K7 adds before Horner."""
     k = digits_t.shape[0] // W
     if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
             or digits_t.device != src.device):
         raise ValueError(f"digits {tuple(digits_t.shape)} on "
                          f"{digits_t.device} / source rows {src.shape[0]} on "
                          f"{src.device}: expected [k*W, {n}] / {2 * n + 1}")
-    idx, offs, sub = plan(digits_t, n)
-    pool = bucket_accumulate(src, idx)
-    buckets = bucket_merge(pool, offs, sub)
-    return horner(window_sums(buckets), k)
+    chunk = point_chunk or POINT_CHUNK
+    ws = None
+    for lo in range(0, max(n, 1), chunk):
+        idx, offs, sub = plan(digits_t[:, lo:lo + chunk], n, lo)
+        part = window_sums(bucket_merge(bucket_accumulate(src, idx), offs,
+                                        sub))
+        ws = part if ws is None else point_add(ws, part)
+    return horner(ws, k)
 
 
 def msm_many_digits_t(digits_t: np.ndarray, src, n: int):
@@ -340,10 +389,10 @@ def msm(scalars, points, device) -> RistrettoPoint:
 class GeneratorTable:
     """Device-resident MSM table over [G_0..G_{N-1} | H_0..H_{N-1} | B |
     B_blinding]: the source rows upload once per proof size; every prover
-    and verifier MSM against it is one `msm_many` launch chain, and the
-    device IPA (ops/ipa_fused) runs `msm_digits_t` on `src` directly
-    (`supports_digits`).  On-device point encoding (`msm_enc`) comes with
-    the device commitments."""
+    and verifier MSM against it is one launch chain from device digits
+    (`msm_digits`, `supports_digits`), and the device IPA (ops/ipa_fused)
+    runs `msm_digits_t` on `src` directly.  On-device point encoding
+    (`msm_enc`) comes with the device Ristretto slice."""
 
     __slots__ = ("N", "m", "src")
     supports_digits = True
@@ -364,7 +413,6 @@ class GeneratorTable:
         t.src = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
         return t
 
-    def msm_many(self, vectors):
-        for v in vectors:
-            assert len(v) == self.m, (len(v), self.m)
-        return msm_many(vectors, self.src, self.m)
+    def msm_digits(self, digits_t):
+        """Device digits int8 [k*W, m] (ops/flvec) -> k host points."""
+        return points_from_cols(msm_digits_t(digits_t, self.src, self.m))

@@ -1,17 +1,19 @@
 """Freeze the proof pins that the PyTorch port is held against.
 
-Proves three inline statements with the JAX package on the CPU, every MSM on
+Proves four inline statements with the JAX package on the CPU, every MSM on
 the host (`core.msm.set_table_min_size(1 << 30)` keeps the generator tables
 off the device), under one fixed blinding seed, verifies each proof, and
 writes `tests/port_pins.json`: the statement texts (gadgets, instance and
 witness, with Merkle roots and hash images computed by `models/mimc`), the
 circuit sizes and the sha256 of the proof and of the `.coms` text.
 
-    python scripts/freeze_port_pins.py                 # all three (minutes)
+    python scripts/freeze_port_pins.py                 # all four (an hour)
     python scripts/freeze_port_pins.py --only bound16  # a subset
 
-The nine-line `example` pads to 2^14 generators; its host MSMs over the
-32,770-point table make it the slow one.
+The nine-line `example` pads to 2^14 generators and its host MSMs over the
+32,770-point table take minutes; `merkle32` (a depth-5 MiMC Merkle
+membership) pads to 2^16 generators, a 131,074-point table, and takes tens
+of minutes.
 """
 import argparse
 import hashlib
@@ -74,6 +76,29 @@ def _example():
     return gadgets, _lines(instance), _lines(witness)
 
 
+def _merkle32():
+    """Membership of witness leaf W0 in a depth-5 MiMC Merkle tree whose
+    other 31 leaves are the instance I1..I31; the root is I0."""
+    leaves = ["W0"] + [f"I{i}" for i in range(1, 32)]
+    values = {"W0": bytes.fromhex("0539")}
+    values.update({f"I{i}": bytes([i, 0x5a, i * 7 % 256])
+                   for i in range(1, 32)})
+    h = lambda b: mimc_hash(b).v                       # noqa: E731
+
+    def tree(names):
+        if len(names) == 1:
+            return names[0], h(values[names[0]])
+        half = len(names) // 2
+        (lt, lv), (rt, rv) = tree(names[:half]), tree(names[half:])
+        return f"({lt} {rt})", mimc_sponge([lv, rv])
+
+    text, root = tree(leaves)
+    instance = [("I0", scalar_to_be(Scalar(root)))]
+    instance += [(f"I{i}", values[f"I{i}"]) for i in range(1, 32)]
+    return (f"MERKLE I0 {text}\n", _lines(instance),
+            _lines([("W0", values["W0"])]))
+
+
 STATEMENTS = {
     # 16-bit BOUND: 32 multipliers, a 66-point table
     "bound16": lambda: ("BOUND W0 I0 I1\n",
@@ -85,6 +110,9 @@ STATEMENTS = {
                           _lines([("W0", bytes.fromhex("2a")),
                                   ("W1", bytes.fromhex("0539"))])),
     "example": _example,
+    # 61,236 multipliers, 2^16 gens, a 131,074-point table (two point
+    # chunks on the port's device path)
+    "merkle32": _merkle32,
 }
 
 

@@ -1,16 +1,22 @@
 """Where the PyTorch port's prove and verify time goes, on one NVIDIA GPU.
 
-    python3 scripts/profile_port.py [--statement example] [--out FILE]
+    python3 scripts/profile_port.py [--statement merkle32] [--out FILE]
 
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
 then --reps times warm (end-to-end wall times), then once warm with every
 stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
 stages (host digit recode, plan incl. its count readback, each kernel, the
 result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
-table) and the device IPA's (`ipa_fused.create` in all, its folds
-`ipa_fold.materialize`, its challenge folds `_fold` and digit builds
-`_scalars`).  Stages nest: an IPA's MSMs are inside `ipa_fused.create`,
-and the kernels inside their MSM.  Then once warm under torch.profiler
+table, point-chunked past msm_serial.POINT_CHUNK points, its chunks
+combined by K7 `point_add`), the device vectors (`flatten.flatten`, the
+commitment digits, `ProverVectors` build / t_poly / lr / factors,
+`verifier_device.table_digits_dev`), the host loops they replace
+(`Prover._flattened_constraints`, `Verifier._flattened_constraints`,
+`exp_iter`, `signed_digits`: absent from a device-path run), and the
+device IPA's (`ipa_fused.create` in all, its folds `ipa_fold.materialize`,
+its challenge folds `_fold` and digit builds `_scalars`).  Stages nest: an
+IPA's MSMs are inside `ipa_fused.create`, and the kernels inside their
+MSM; `stage_n` counts the calls.  Then once warm under torch.profiler
 for the device busy time:
 the union of the card's own activity intervals (kernels, copies, memsets),
 so no host operator is counted beside the device work it issued.
@@ -51,7 +57,7 @@ def device_activity(prof):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--statement", default="example")
+    ap.add_argument("--statement", default="merkle32")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
@@ -62,8 +68,10 @@ def main(argv=None) -> int:
         return 1
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
     from bulletproof_gadgets_tpu_torch.lang.verify import verify
+    from bulletproof_gadgets_tpu_torch.core import r1cs
     from bulletproof_gadgets_tpu_torch.ops import (
-        engine, ipa_fold, ipa_fused, msm_serial as ms)
+        engine, flatten, ipa_fold, ipa_fused, msm_serial as ms,
+        prover_device, verifier_device)
     from bulletproof_gadgets_tpu_torch.utils import rng
 
     with open(os.path.join(ROOT, "tests", "port_pins.json")) as f:
@@ -87,7 +95,7 @@ def main(argv=None) -> int:
     cold_total = time.perf_counter() - t0
     warm = [run() for _ in range(args.reps)]
 
-    stage_s = {}
+    stage_s, stage_n = {}, {}
 
     def timed(name, fn):
         @functools.wraps(fn)
@@ -98,18 +106,26 @@ def main(argv=None) -> int:
             out = fn(*a, **kw)
             torch.cuda.synchronize()
             stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
+            stage_n[key] = stage_n.get(key, 0) + 1
             return out
         return wrapper
 
+    pv = prover_device.ProverVectors
     stages = [(ms, n) for n in (
         "signed_digits", "plan", "bucket_accumulate", "bucket_merge",
-        "window_sums", "horner", "points_from_cols", "msm_many",
-        "msm_digits_t")] + [(ipa_fused, "create"), (ipa_fused, "_fold"),
-                            (ipa_fused, "_scalars"), (ipa_fold, "materialize")]
+        "window_sums", "point_add", "horner", "points_from_cols",
+        "msm_many", "msm_digits_t")] + [
+        (flatten, "flatten"), (prover_device, "commitment_digits"),
+        (pv, "__init__"), (pv, "t_poly"), (pv, "lr"), (pv, "factors"),
+        (verifier_device, "table_digits_dev"),
+        (r1cs.Prover, "_flattened_constraints"),
+        (r1cs.Verifier, "_flattened_constraints"), (r1cs, "exp_iter"),
+        (ipa_fused, "create"), (ipa_fused, "_fold"), (ipa_fused, "_scalars"),
+        (ipa_fold, "materialize")]
     saved = [(mod, n, getattr(mod, n)) for mod, n in stages]
     for mod, n, fn in saved:
         setattr(mod, n, timed(n if mod is ms else
-                              f"{mod.__name__.rsplit('.', 1)[1]}.{n}", fn))
+                              f"{mod.__name__.rsplit('.', 1)[-1]}.{n}", fn))
     launches0 = dict(ms.LAUNCHES)
     prove_s, verify_s = run()
     for mod, n, fn in saved:
@@ -136,7 +152,8 @@ def main(argv=None) -> int:
            "instrumented_prove_s": prove_s,
            "instrumented_verify_s": verify_s,
            "msms": launches["horner"], "launches": launches,
-           "stage_s": stage_s,
+           "point_chunk": ms.POINT_CHUNK, "stage_s": stage_s,
+           "stage_n": stage_n,
            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / 1e3 / wall,
            "top_device_ms": top}

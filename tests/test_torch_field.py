@@ -1,7 +1,8 @@
 """The port's plain F_p and point ops (bulletproof_gadgets_tpu_torch.ops.fp,
 ops.curve) against the JAX package's field and point bodies
-(ops/pallas_curve._mul, _padd_body, _madd_body, called eagerly on jnp
-arrays, no pallas_call) and the host group law (core/ristretto).
+(ops/pallas_curve._mul, _padd_body, _madd_body, each under one jax.jit on
+jnp arrays, no pallas_call), its lane-wise add kernel `padd_cols` (Pallas,
+interpret mode on the CPU) and the host group law (core/ristretto).
 
 Inputs come from numpy seeds and go to both sides as Python ints; results
 are compared as canonical values (field elements) or canonical affine
@@ -11,6 +12,7 @@ layouts).  Tolerance: exact equality.
 import os
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from bulletproof_gadgets_tpu.ops import fp as jfp, pallas_curve as pc
 from bulletproof_gadgets_tpu_torch.core.ristretto import (
     P, D, RISTRETTO_BASEPOINT, RistrettoPoint)
 from bulletproof_gadgets_tpu_torch.ops import curve, fp
+from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
 
 torch.set_num_threads(1)
 
@@ -58,10 +61,11 @@ def test_field_ops_match_jax(seed):
     bias = jnp.asarray(pc._SUB_BIAS_COL)
     want = [x * y % P for x, y in zip(a, b)]
     assert fp.limbs_to_ints(fp.mul(pa, pb).numpy()) == want
-    assert _jax_ints(pc._mul(ja, jb)) == want
+    assert _jax_ints(jax.jit(pc._mul)(ja, jb)) == want
+    lazy = jax.jit(pc._lazy)
     for port_out, jax_out, ref in (
-            (fp.add(pa, pb), pc._lazy(ja + jb), [x + y for x, y in zip(a, b)]),
-            (fp.sub(pa, pb), pc._lazy(ja + bias - jb),
+            (fp.add(pa, pb), lazy(ja + jb), [x + y for x, y in zip(a, b)]),
+            (fp.sub(pa, pb), lazy(ja + bias - jb),
              [x - y for x, y in zip(a, b)])):
         got = fp.canonical(port_out)
         assert got.numpy().tolist() == fp.ints_to_limbs(
@@ -125,12 +129,13 @@ def test_point_ops_match_jax_and_host():
     q = _points(4, 6)[:3] + [p[3], -p[4], p[0]] + [p[1]]
     bias = jnp.asarray(pc._SUB_BIAS_COL)
     d2 = jnp.asarray(pc._D2_COL)
+    padd_body, madd_body = jax.jit(pc._padd_body), jax.jit(pc._madd_body)
 
     want = [_affine(a + b) for a, b in zip(p, q)]
     assert curve.canonical_affine(curve.padd(_port_pts(p), _port_pts(q))) \
         == want
-    assert _jax_affine(pc._padd_body(bias, d2, *_jax_pts(p),
-                                     *_jax_pts(q))) == want
+    assert _jax_affine(padd_body(bias, d2, *_jax_pts(p),
+                                 *_jax_pts(q))) == want
 
     aff = [_affine(b) for b in q]
     t2d = [x * y * 2 * D % P for x, y in aff]
@@ -139,12 +144,27 @@ def test_point_ops_match_jax_and_host():
     row_jax = (_jax([a[0] for a in aff]), _jax([a[1] for a in aff]),
                _jax(t2d))
     assert curve.canonical_affine(curve.madd(_port_pts(p), row_port)) == want
-    assert _jax_affine(pc._madd_body(bias, *_jax_pts(p), *row_jax)) == want
+    assert _jax_affine(madd_body(bias, *_jax_pts(p), *row_jax)) == want
 
     dbl_want = [_affine(a.double()) for a in p]
     assert curve.canonical_affine(curve.dbl(_port_pts(p))) == dbl_want
-    assert _jax_affine(pc._padd_body(bias, d2, *_jax_pts(p),
-                                     *_jax_pts(p))) == dbl_want
+    assert _jax_affine(padd_body(bias, d2, *_jax_pts(p),
+                                 *_jax_pts(p))) == dbl_want
+
+
+def test_point_add_plain_matches_jax_padd_cols():
+    """K7's plain version (msm_serial.point_add on CPU tensors) against the
+    JAX package's padd_cols on one 512-lane block (Pallas interpret mode)
+    and the host group law: lane i adds p[i % 7] and q[(3 i) % 7]."""
+    p, q = _points(5, 6), _points(6, 6)[::-1]
+    lanes = np.arange(512)
+    pp = [p[i % 7] for i in lanes]
+    qq = [q[3 * i % 7] for i in lanes]
+    got = ms.point_add(curve.stack(_port_pts(pp)), curve.stack(_port_pts(qq)))
+    assert got.dtype == torch.int32 and got.shape == (4, fp.NL, 512)
+    want = [_affine(a + b) for a, b in zip(pp, qq)]
+    assert curve.canonical_affine(curve.unstack(got)) == want
+    assert _jax_affine(pc.padd_cols(_jax_pts(pp), _jax_pts(qq))) == want
 
 
 def test_cuda_header_matches_plain_constants():

@@ -9,6 +9,7 @@ Inputs come from numpy seeds and go to both packages as Python ints or as
 the JAX package's limb rows carried over with ops/fl.from_rows13.  The
 arithmetic is exact, so every comparison is equality of canonical values.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -74,8 +75,8 @@ def test_mont_mul_and_add_match_jax(seed):
     assert all(v < L for v in (
         sum(int(r[j]) << (fl.B * j) for j in range(fl.NW))
         for r in got.tolist()))
-    jax_got = jfl.mont_mul(jnp.asarray(jflvec.to_limbs(a)),
-                           jnp.asarray(jflvec.to_mont(y)))
+    jax_got = jax.jit(jfl.mont_mul)(jnp.asarray(jflvec.to_limbs(a)),
+                                    jnp.asarray(jflvec.to_mont(y)))
     assert _jax_ints(jax_got) == want
     # add on canonical values; to_mont/from_mont round trip
     b = [x % L for x in a]
@@ -110,7 +111,8 @@ def test_sum_rows_and_digits4():
     assert e.min() >= 0 and e.max() <= 15
     assert [sum((int(e[w, j]) - 8) << (4 * w) for w in range(64))
             for j in range(len(std))] == std
-    jax_e = jipa_fold.digits4_dev(jnp.asarray(jflvec.to_limbs(std)))
+    jax_e = jax.jit(jipa_fold.digits4_dev)(
+        jnp.asarray(jflvec.to_limbs(std)))
     assert np.array_equal(e.astype(np.int64), np.asarray(jax_e))
 
 

@@ -7,7 +7,7 @@ the `cuda` fixture, not at import).  The card runs them with
 
 (`--noconftest`: the suite's conftest imports JAX, which the GPU machine
 does not need).  chip_smoke.py runs the same comparisons at the example
-statement's full shapes.
+statement's full shapes (K7 on merkle32's chunk window sums).
 """
 import random
 
@@ -111,3 +111,30 @@ def test_ladder_fold_equals_plain(cuda, monkeypatch):
     monkeypatch.setattr(ipa_fold, "ladder_fold", ipa_fold.ladder_fold_plain)
     want = ipa_fold.materialize(src, gc, hc, n_t, d, len(pts))
     assert got.is_cuda and torch.equal(got, want)   # canonical rows, exact
+
+
+def test_point_add_equals_plain(stage_inputs):
+    """K7 on the k=3 MSM's window sums (the chunk combine's width: 96
+    lanes) and on its whole bucket pool against its plain version."""
+    for p in (stage_inputs["ws"], stage_inputs["pool"]):
+        q = p.flip(2).contiguous()
+        before = ms.LAUNCHES["point_add"]
+        got = ms.point_add(p, q)
+        torch.cuda.synchronize()
+        assert ms.LAUNCHES["point_add"] == before + 1
+        assert got.is_cuda and torch.equal(got, ms.point_add_plain(p, q))
+
+
+def test_chunked_msm_equals_host(stage_inputs):
+    """The k=3 MSM over the 2050-point table in point chunks of 512 (five
+    chunks, four K7 launches) equals the host MSM."""
+    src, vecs = stage_inputs["src"], stage_inputs["vecs"]
+    digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
+    d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
+    before = ms.LAUNCHES["point_add"]
+    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
+                           point_chunk=512)
+    assert ms.LAUNCHES["point_add"] == before + 4
+    want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
+    assert [g.compress() for g in ms.points_from_cols(cols)] == \
+        [w.compress() for w in want]

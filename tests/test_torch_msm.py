@@ -53,6 +53,30 @@ def test_msm_matches_host(points, n, k):
     assert [g.compress() for g in got] == [w.compress() for w in want]
 
 
+@pytest.mark.parametrize("k", [1, 3])
+def test_chunked_msm_matches_host(points, k, monkeypatch):
+    """A 258-point table in point chunks of 64 (five chunks, the last of
+    two points): the chunks' window sums added lane-wise by K7's plain
+    version (four adds) equal the host MSM."""
+    n = 258
+    pts = points[:n]
+    src = torch.from_numpy(ms.prep_source(pts))
+    vecs = _vectors(k, n, seed=7 + k)
+    adds = []
+    real = ms.point_add
+    monkeypatch.setattr(ms, "point_add",
+                        lambda p, q: adds.append(p.shape) or real(p, q))
+    digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
+                             for vec in vecs], 1)
+    cols = ms.msm_digits_t(
+        torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8)),
+        src, n, point_chunk=64)
+    assert adds == [(4, ms.NL, k * ms.W)] * 4
+    want = [msm_host(v, _as_jax(pts)) for v in vecs]
+    assert [g.compress() for g in ms.points_from_cols(cols)] == \
+        [w.compress() for w in want]
+
+
 def test_table_carried_over_from_jax_rows(points):
     """The JAX package's source rows, converted, are this package's rows,
     and a table built from them gives the host's answer."""
@@ -63,7 +87,10 @@ def test_table_carried_over_from_jax_rows(points):
     table = ms.GeneratorTable.from_rows(rows, torch.device("cpu"))
     assert table.m == n == 130
     vecs = _vectors(3, n, seed=99)
-    got = table.msm_many(vecs)
+    digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
+                             for vec in vecs], 1)
+    got = table.msm_digits(
+        torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8)))
     assert [g.compress() for g in got] == [
         msm_host(v, _as_jax(pts)).compress() for v in vecs]
 

@@ -25,7 +25,8 @@ from bulletproof_gadgets_tpu.utils import rng as jax_rng
 from bulletproof_gadgets_tpu_torch.core import msm as port_msm
 from bulletproof_gadgets_tpu_torch.lang.prove import prove
 from bulletproof_gadgets_tpu_torch.lang.verify import verify
-from bulletproof_gadgets_tpu_torch.ops import engine, ipa_fused, msm_serial
+from bulletproof_gadgets_tpu_torch.ops import (engine, flatten, ipa_fused,
+                                               msm_serial)
 from bulletproof_gadgets_tpu_torch.utils import rng
 
 torch.set_num_threads(1)
@@ -92,12 +93,30 @@ def test_bound16_matches_jax_byte_for_byte(port_on_cpu, ipa_calls):
     assert not verify(*args, bytes(bad), port_coms, st["gadgets"])
 
 
-def test_less_than_matches_its_pin(port_on_cpu, ipa_calls):
+def test_less_than_matches_its_pin(port_on_cpu, ipa_calls, monkeypatch):
+    """LESS_THAN on the device path with every vector on the device
+    (flattening forced below its size rule) and the 1026-point table in
+    point chunks of 1024 (two chunks: every table MSM adds its chunks'
+    window sums with K7's plain version): proof and .coms equal the pin."""
     st = PINS["statements"]["less_than"]
+    monkeypatch.setattr(flatten, "MIN_DEVICE_TERMS", 0)
+    monkeypatch.setattr(msm_serial, "POINT_CHUNK", 1024)
+    flats, adds = [], []
+    real_flatten, real_add = flatten.flatten, msm_serial.point_add
+    monkeypatch.setattr(flatten, "flatten", lambda *a, **kw: flats.append(
+        real_flatten(*a, **kw)) or flats[-1])
+    monkeypatch.setattr(msm_serial, "point_add",
+                        lambda p, q: adds.append(p.shape[2]) or real_add(p, q))
     proof, coms = _prove(prove, rng, "less_than")
     assert ipa_calls == [st["gens"]]
+    assert len(flats) == 1 and flats[0] is not None
+    # one combine per table MSM: the commitments (k = 3), 9 IPA rounds (k = 2)
+    assert adds == [3 * msm_serial.W] + [2 * msm_serial.W] * 9
     assert _sha(proof) == st["proof_sha256"]
     assert _sha(coms.encode()) == st["coms_sha256"]
+    assert verify("less_than", st["instance"], proof, coms, st["gadgets"])
+    assert len(flats) == 2 and flats[1].wc is not None
+    assert adds[-1] == msm_serial.W                # the verifier's table MSM
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
