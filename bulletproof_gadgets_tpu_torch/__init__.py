@@ -13,12 +13,14 @@ Layers (the JAX package's layout and module names):
            native/ builds them
   models/  the gadget zoo + native MiMC
   lang/    .gadgets/.inst/.wtns/.coms mini-language compiler + orchestrators
+           (one proof: lang.prove / lang.verify; a batch of witnesses of
+           one circuit in lockstep: lang.batch)
   cli/     prover / verifier command-line entry points
 
 Importing the package touches no device.  The entry points
-(lang.prove.prove, lang.verify.verify) take `device=`; without it they use
-the device given to `ops.engine.register`, else CUDA (raising where CUDA
-is missing).
+(lang.prove.prove, lang.verify.verify, lang.batch.prove_batch and
+verify_batch) take `device=`; without it they use the device given to
+`ops.engine.register`, else CUDA (raising where CUDA is missing).
 """
 
 __version__ = "0.1.0"

@@ -58,7 +58,29 @@ class InnerProductProof:
         each round's L and R are ONE `table.msm_many` call over the
         resident table (the c_L*Q / c_R*Q terms ride the B slot as c*w);
         a device table (`supports_digits`) runs ops/ipa_fused.create.
+        Drives `create_gen`.
         """
+        from ..ops import ipa_fused
+        gen = InnerProductProof.create_gen(transcript, Q, G_factors,
+                                           H_factors, G, H, a, b, table, w)
+        resp = None
+        while True:
+            try:
+                _, tbl, args = gen.send(resp)
+            except StopIteration as stop:
+                return stop.value
+            resp = ipa_fused.create(args[0], tbl, *args[1:])
+
+    @staticmethod
+    def create_gen(transcript, Q: RistrettoPoint, G_factors, H_factors,
+                   G, H, a, b, table=None, w=None):
+        """Generator form of `create`: on a device table it yields
+        ("fused_ipa", table, (transcript, w, G_factors, H_factors, a, b))
+        once, right after the domain separator, with the factors and
+        vectors as ints or device rows, and expects (L_vec, R_vec, a0, b0)
+        back (lang/batch answers a group of them with one
+        ops/ipa_fused.create_batched); on any other table the host loop
+        runs without yielding."""
         n_full = len(G)
         assert n_full == len(H) == len(a) == len(b)
         assert n_full == len(G_factors) == len(H_factors)
@@ -71,12 +93,11 @@ class InnerProductProof:
                 and n_full > 1):
             # Scalar lists go in as ints; the prover's device vectors
             # (ops/prover_device) go in as they are
-            from ..ops import ipa_fused
             ints = lambda v: ([s.v % _q for s in v]          # noqa: E731
                               if isinstance(v, list) else v)
-            L_vec, R_vec, a0, b0 = ipa_fused.create(
-                transcript, table, w.v % _q, ints(G_factors),
-                ints(H_factors), ints(a), ints(b))
+            L_vec, R_vec, a0, b0 = yield (
+                "fused_ipa", table, (transcript, w.v % _q, ints(G_factors),
+                                     ints(H_factors), ints(a), ints(b)))
             return InnerProductProof(L_vec, R_vec, Scalar(a0), Scalar(b0))
 
         # Hot path: raw-int modular arithmetic (Scalar wrappers only at the

@@ -16,7 +16,10 @@ work runs on the device: the A_I/A_O/S digits, the flattening
 vectors (ops/prover_device), the inner-product argument (ops/ipa_fused)
 and the verifier's table scalars (ops/verifier_device); every table MSM
 is `table.msm_digits`.  On a host table (core/msm._HostTable) the host
-loops below run: they are the oracle.
+loops below run: they are the oracle.  `Prover.prove_gen` is the proof as
+a generator of device requests (the commitments' MSM, the t-poly readback,
+the argument); `Prover.prove` answers them for one proof, lang/batch for
+many proofs in lockstep.
 
 The reference never uses randomized (2-phase) constraints, so this
 implementation is 1-phase: A_I2/A_O2/S2 are identity and the proof
@@ -197,10 +200,39 @@ class Prover:
 
     # -- proving -----------------------------------------------------------
     def prove(self, bp_gens) -> R1CSProof:
-        """Single proof.  On a device table (`supports_digits`) the O(n)
-        vectors stay on the device and every table MSM is one
-        `table.msm_digits`; on a host table the host loops run and every
-        table MSM is one `table.msm_many` over the stacked vectors."""
+        """Single proof: drives `prove_gen`, answering each request with
+        the table itself (`table.msm_digits`), one readback, or
+        ops/ipa_fused.create."""
+        gen = self.prove_gen(bp_gens)
+        resp = None
+        while True:
+            try:
+                kind, table, arg = gen.send(resp)
+            except StopIteration as stop:
+                return stop.value
+            if kind == "msm":
+                resp = table.msm_digits(arg)
+            elif kind == "fused_ipa":
+                from ..ops import ipa_fused
+                resp = ipa_fused.create(arg[0], table, *arg[1:])
+            else:
+                assert kind == "fetch"
+                resp = arg.cpu()
+
+    def prove_gen(self, bp_gens):
+        """Generator form of prove().  On a device table (`supports_digits`)
+        the O(n) vectors stay on the device and it yields, in order:
+          ("msm", table, digits)      the A_I/A_O/S commitments' device
+                                      digits [3*32, m]; expects 3 points;
+          ("fetch", None, rows)       the t-poly inner products [9, NW];
+                                      expects them on the host;
+          ("fused_ipa", table, args)  the argument (core/ipa.create_gen);
+                                      expects (L_vec, R_vec, a0, b0).
+        The commitments' request comes after the draws of their blindings
+        and s_L, s_R, and before the draws of the t blindings, as in the
+        JAX package, so lang.batch's lockstep draws every proof's
+        commitment blindings first.  On a host table it yields nothing:
+        every table MSM is one `table.msm_many` over the stacked vectors."""
         t = self.transcript
         t.append_u64(b"m", len(self.v))
 
@@ -234,10 +266,10 @@ class Prover:
             wit = prover_device.upload(
                 [[s.v for s in vec] for vec in
                  (self.a_L, self.a_R, self.a_O, s_L1, s_R1)], dev)
-            p_AI, p_AO, p_S = table.msm_digits(
-                prover_device.commitment_digits(
-                    *wit, (i_blinding1.v, o_blinding1.v, s_blinding1.v),
-                    padded_n1))
+            p_AI, p_AO, p_S = yield ("msm", table,
+                                     prover_device.commitment_digits(
+                                         *wit, (i_blinding1.v, o_blinding1.v,
+                                                s_blinding1.v), padded_n1))
         else:
             zpad = [0] * (padded_n1 - n1)
             zeros_N = [0] * padded_n1
@@ -294,7 +326,8 @@ class Prover:
             pv = prover_device.ProverVectors(
                 *wit, wL, wR, wO, y.v % L_MOD, y_inv.v % L_MOD, padded_n,
                 dev)
-            t_poly = _Poly6(*(Scalar(v) for v in pv.t_poly()))
+            t_parts = yield ("fetch", None, pv.t_poly_device())
+            t_poly = _Poly6(*(Scalar(v) for v in pv.t_poly_from(t_parts)))
         else:
             exp_y_vec = exp_iter(y, max(n, 1))
             exp_y_inv = exp_iter(y_inv, padded_n)
@@ -378,7 +411,7 @@ class Prover:
                          for i in range(padded_n)]
 
         assert padded_n == padded_n1
-        ipp = InnerProductProof.create(
+        ipp = yield from InnerProductProof.create_gen(
             t, Q, G_factors, H_factors,
             list(bp_gens.G(padded_n)), list(bp_gens.H(padded_n)),
             l_vec, r_vec, table=table, w=w)

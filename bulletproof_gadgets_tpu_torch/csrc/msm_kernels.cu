@@ -1,5 +1,6 @@
 // The kernels of the serial-bucket MSM (ops/msm_serial.py): the four stages
-// of one MSM (K1, K3, K4, K5) and the lane-wise add that combines the
+// of one MSM (K1, K3, K4, K5), the bucket accumulation that carries its
+// pool in across round chunks (K2), and the lane-wise add that combines the
 // window sums of point chunks (K7), with a plain C interface for ctypes.
 // Each launcher runs on the given stream, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).
@@ -19,14 +20,18 @@ constexpr int kThreads = 128;
 
 inline int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
-// K1: lane p accumulates the rows idx[0..T-1, p] by mixed addition.
+// K1 (kCarry false): lane p accumulates the rows idx[0..T-1, p] by mixed
+// addition, from the identity.  K2 (kCarry true): the same T adds, started
+// from lane p of acc_in (the pool of the earlier round chunks).
+template <bool kCarry>
 __global__ void __launch_bounds__(kThreads)
 bucket_accumulate_kernel(const int32_t* __restrict__ src,
                          const int32_t* __restrict__ idx, int T, int P,
+                         const int32_t* __restrict__ acc_in,
                          int32_t* __restrict__ out) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P) return;
-  ge acc = ge_identity();
+  ge acc = kCarry ? ge_load(acc_in, P, lane) : ge_identity();
   for (int t = 0; t < T; t++) {
     const int64_t row = idx[(int64_t)t * P + lane];
     const int4* r = reinterpret_cast<const int4*>(src + row * 32);
@@ -115,9 +120,20 @@ extern "C" {
 
 int bpg_bucket_accumulate(const void* src, const void* idx, int T, int P,
                           void* out, void* stream) {
-  bucket_accumulate_kernel<<<blocks_for(P), kThreads, 0,
-                             (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)idx, T, P, (int32_t*)out);
+  bucket_accumulate_kernel<false><<<blocks_for(P), kThreads, 0,
+                                    (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)idx, T, P, nullptr,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+int bpg_bucket_accumulate_cont(const void* src, const void* idx, int T,
+                               int P, const void* acc, void* out,
+                               void* stream) {
+  bucket_accumulate_kernel<true><<<blocks_for(P), kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int32_t*)src, (const int32_t*)idx, T, P, (const int32_t*)acc,
+      (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FUNCS = {
     "bpg_bucket_accumulate": [_P, _P, _I, _I, _P, _P],
+    "bpg_bucket_accumulate_cont": [_P, _P, _I, _I, _P, _P, _P],
     "bpg_bucket_merge": [_P, _I, _P, _P, _I, _P, _P],
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
@@ -38,8 +39,9 @@ _FUNCS = {
     "bpg_point_add": [_P, _P, _I, _P, _P],
 }
 
-LAUNCHES = {"bucket_accumulate": 0, "bucket_merge": 0, "window_sums": 0,
-            "horner": 0, "ladder_fold": 0, "point_add": 0}
+LAUNCHES = {"bucket_accumulate": 0, "bucket_accumulate_cont": 0,
+            "bucket_merge": 0, "window_sums": 0, "horner": 0,
+            "ladder_fold": 0, "point_add": 0}
 
 _LIB = None
 BUILD_LOG = ""

@@ -125,11 +125,18 @@ def carry(h):
 
 
 def mul(f, g):
-    """f * g mod p; f, g int64 [NL, ...] (carried or lazy)."""
+    """f * g mod p; f, g int64 [NL, ...] (carried or lazy).  Narrow operands
+    form all NL x NL products at once; wide ones accumulate the column
+    sums limb row by limb row (no [NL, NL, ...] temporary: ~2x faster on
+    the CPU past a few thousand lanes)."""
     j, fac = _tables(f.device)
-    cols = f.unsqueeze(1) * g[j]
-    cols = cols * fac.view((NL, NL) + (1,) * (f.dim() - 1))
-    return carry(cols.sum(0))
+    fac = fac.view((NL, NL) + (1,) * (f.dim() - 1))
+    if f[0].numel() < 4096:
+        return carry((f.unsqueeze(1) * g[j] * fac).sum(0))
+    cols = f[0] * g[j[0]] * fac[0]
+    for i in range(1, NL):
+        cols += f[i] * g[j[i]] * fac[i]
+    return carry(cols)
 
 
 def mul_many(fs, gs):

@@ -11,6 +11,12 @@ Round structure (positions relative to the current virtual length n):
   L: G_t gets a[pos-half]*gc[t] when pos >= half, H_t gets b[pos+half]*hc[t]
      when pos < half, B gets c_L*w;  R mirrors with the halves swapped.
 
+`_fold` and `_scalars` also take a group of B proofs of one table on a
+leading axis ([B, n_full, NW] rows, u rows [B, 1, NW], wr2 [B, 1, NW]):
+the batched IPA (ops/ipa_fused.create_batched) then launches each plain
+F_l op once per round for the group, as the JAX package's vmapped round
+does.
+
 The digits are the dense [64, m] matrix (L's 32 windows over R's).  The JAX
 package's compact layout (`_scalars_compact` and its source `remap`) halves
 its TPU entry sort; here `msm_serial.plan` drops zero digits before its
@@ -53,11 +59,13 @@ def round_masks(n_full: int, device="cpu"):
 def _fold(a, b, gc, hc, u_m, uinv_m, ga, hi):
     """One dalek fold on full-length rows: a' = a*u + a[ga]*u^-1, b' = b*u^-1
     + b[ga]*u (the rows below half are the folded vector), gc' = gc * (u if
-    hi else u^-1), hc' mirrored.  u_m, uinv_m: Montgomery rows [NW]."""
+    hi else u^-1), hc' mirrored.  u_m, uinv_m: Montgomery rows [NW] (a
+    group: [B, 1, NW] against rows [B, n_full, NW])."""
     fg = torch.where(hi, u_m, uinv_m)
     fh = torch.where(hi, uinv_m, u_m)
     prod = fl.mont_mul(
-        torch.stack([a, a[ga], b, b[ga], gc, hc]),
+        torch.stack([a, a.index_select(-2, ga), b, b.index_select(-2, ga),
+                     gc, hc]),
         torch.stack([u_m.expand_as(fg), uinv_m.expand_as(fg),
                      uinv_m.expand_as(fg), u_m.expand_as(fg), fg, fh]))
     sums = fl.add(prod[0:4:2], prod[1:4:2])
@@ -65,26 +73,31 @@ def _fold(a, b, gc, hc, u_m, uinv_m, ga, hi):
 
 
 def _scalar_rows(a, b, gc, hc, wr2, mk):
-    """[2m, NW] std rows (m = 2*n_full + 2): the L vector over the R vector.
-    wr2 = w * R^2 (std row), so mont_mul(c / R, wr2) = c * w."""
+    """[..., 2m, NW] std rows (m = 2*n_full + 2): the L vector over the R
+    vector.  wr2 = w * R^2 (std row [NW], a group's [B, 1, NW]), so
+    mont_mul(c / R, wr2) = c * w."""
     ga, hi = mk["ga"], mk["hi"]
     prod_a, prod_b, p1 = fl.mont_mul(
-        torch.stack([a[ga], b[ga], a]), torch.stack([gc, hc, b[mk["cs"]]]))
+        torch.stack([a.index_select(-2, ga), b.index_select(-2, ga), a]),
+        torch.stack([gc, hc, b.index_select(-2, mk["cs"])]))
     zero = torch.zeros_like(p1)
     sums = flvec.sum_rows(torch.stack([torch.where(mk["lo_i"], p1, zero),
                                        torch.where(mk["hi_i"], p1, zero)]))
-    c_lr = fl.mont_mul(sums, wr2)                    # c_L * w, c_R * w
-    tail = torch.zeros_like(c_lr[:1])
+    # c_L * w, c_R * w as [..., 1, NW] rows
+    c_l, c_r = fl.mont_mul(sums.unsqueeze(-2), wr2).unbind(0)
+    tail = torch.zeros_like(c_l)
     v_l = torch.cat([torch.where(hi, prod_a, zero),
-                     torch.where(hi, zero, prod_b), c_lr[:1], tail])
+                     torch.where(hi, zero, prod_b), c_l, tail], dim=-2)
     v_r = torch.cat([torch.where(hi, zero, prod_a),
-                     torch.where(hi, prod_b, zero), c_lr[1:], tail])
-    return torch.cat([v_l, v_r])
+                     torch.where(hi, prod_b, zero), c_r, tail], dim=-2)
+    return torch.cat([v_l, v_r], dim=-2)
 
 
 def _scalars(a, b, gc, hc, wr2, mk):
     """This round's L and R MSM scalars as signed c = 8 digits, int8
-    [2*32, m] (L's windows, then R's; m = 2*n_full + 2)."""
+    [2*32, m] (L's windows, then R's; m = 2*n_full + 2); for a group of B
+    proofs [B*2*32, m], proof by proof."""
     dig = flvec.digits_device(_scalar_rows(a, b, gc, hc, wr2, mk))
-    m = dig.shape[1] // 2
-    return torch.cat([dig[:, :m], dig[:, m:]]).contiguous()
+    m = dig.shape[-1] // 2                       # dig [32, (B,) 2m]
+    return dig.reshape(32, -1, 2, m).permute(1, 2, 0, 3).reshape(-1, m) \
+        .contiguous()

@@ -6,14 +6,17 @@ One MSM of k scalar vectors over an n-point source:
   digits   signed c=8 recode, k*W windows of NB = 128 buckets each, int8
            [k*W, n]: on the host (ops/msm.signed_digits, uploaded once) or
            on the device (ops/flvec.digits_device).
-  plan     device: one sort of the packed (bucket, source row) entries and
+  schedule device: one sort of the packed (bucket, source row) entries and
            one bincount; the [k*W*NB] bucket counts are the only readback.
            The host picks the round budget T and splits a bucket with c
            entries over ceil(c / T) consecutive pool lanes, so every lane
            has at most T entries (bit-vector witnesses put ~n entries into
-           one bucket).  idx [T, P] is a gather from the sorted stream.
+           one bucket).  `idx_rows` gathers rounds t0..t1 of idx [T, P]
+           from the sorted stream.
   K1       bucket_accumulate: one thread per pool lane, T mixed adds of
            gathered affine rows [x | y | 2d*x*y] (128-byte rows).
+  K2       bucket_accumulate_cont: K1 started from a carried pool (the
+           round chunks below).
   K3       bucket_merge: one thread per bucket sums its lanes in order.
   K4       window_sums: one thread per window, sum_b b*S_b by the running
            sum (2*NB adds, no scalar multiplies).
@@ -26,19 +29,34 @@ device, launches the CUDA kernel for CUDA tensors (csrc/msm_kernels.cu,
 built by bulletproof_gadgets_tpu_torch.native) and counts the launch in
 LAUNCHES (native.LAUNCHES); for CPU tensors it runs the plain PyTorch
 version beside it, which computes the same limbs.  Indices are in range by
-construction of `plan` over a [2n+1]-row source (checked on the host in
-`msm_digits_t`), so the wrappers read nothing back; the plain versions
+construction of `schedule` over a [2n+1]-row source (checked on the host
+in `msm_digits_t`), so the wrappers read nothing back; the plain versions
 check them.
 
 Point chunks: a source of more than POINT_CHUNK = 2^17 points is cut into
-contiguous chunks of at most 2^17 points.  Each chunk runs plan -> K1 -> K3
--> K4 to its [4, NL, k*W] window sums, with idx pointing into the one
-[2n+1, ROW] source (rows lo..hi, n+lo..n+hi and the identity 2n: no
+contiguous chunks of at most 2^17 points.  Each chunk runs schedule -> K1
+-> K3 -> K4 to its [4, NL, k*W] window sums, with idx pointing into the
+one [2n+1, ROW] source (rows lo..hi, n+lo..n+hi and the identity 2n: no
 per-chunk copy), and the window sums of the chunks are added lane-wise by
 K7 (`point_add`, D-1 launches for D chunks) before one K5.  On the H100 a
 chunk's two row ranges (2 x 16 MB) fit in the 50 MB L2, where a 2^17-gens
 table's rows (64 MB) do not (a 2^16-gens table fits whole: there K1's time
 per entry is the same with and without chunks, PERF.md).
+
+Round chunks: when a point chunk's T*P slots pass SLOT_BUDGET = 18 * 2^20
+(the JAX package's `_SLOT_BUDGET`, so the same launches chunk in both
+packages), its rounds run in chunks of max(1, SLOT_BUDGET // P): K1 on the
+first, K2 carrying the [4, NL, P] pool through each later one.  The JAX
+reason is the TPU's gathered-row transient; here it is the planner's: the
+idx rows of a chunk are built from [tc, P] int64 ranks and an int32 gather
+and where (about 24 B a slot), so no [T, P] array larger than one round
+chunk exists (~450 MB at the budget; at the sizes measured so far the
+schedule's sort sets the peak instead, PERF.md).  Batched proving reaches
+it: three `merkle32` proofs stack k = 9 vectors over a 2^17-point chunk.
+
+Stacked vectors: one launch takes at most max_stack_k() = 11 vectors (the
+JAX package's cap, so batched proofs group as they do there); wider digit
+matrices split along the vector axis.
 
 Two entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
 signed digits already on the device (the commitments, the device IPA and
@@ -46,10 +64,11 @@ the verifier's table MSM) and returns the points as device columns, read
 back by the caller.
 
 Not ported, because they serve the TPU: the static tight/safe plans and
-their overflow re-run (remote round trips), the Mosaic/VMEM constants (pool
-cap, lane padding, round chunks, scan width caps), and the round-chunked
-accumulator-carrying kernel (ROADMAP Queue 2, K2).
+their overflow re-run (remote round trips), the Mosaic/VMEM constants (lane
+padding, the rounds per grid step, scan width caps).
 """
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -71,6 +90,7 @@ _2D = 2 * _D % _P
 _LANE_TARGET = 1 << 16
 _MIN_ROUNDS = 4
 POINT_CHUNK = 1 << 17     # most source points per chunk (msm_digits_t)
+SLOT_BUDGET = 18 * 2**20  # most T*P slots per K1/K2 launch (msm_digits_t)
 
 LAUNCHES = native.LAUNCHES       # every kernel's count, K6's included
 
@@ -104,15 +124,55 @@ def bucket_accumulate(src, idx):
 
 
 def bucket_accumulate_plain(src, idx):
+    return _accumulate_plain(src, idx,
+                             curve.identity((idx.shape[1],), src.device))
+
+
+def _accumulate_plain(src, idx, acc):
     if bool(((idx < 0) | (idx >= src.shape[0])).any()):
         raise ValueError("idx: row index outside src")
-    t, p = idx.shape
-    acc = curve.identity((p,), src.device)
     rows = src.to(torch.int64)
-    for r in range(t):
+    for r in range(idx.shape[0]):
         g = rows[idx[r].long()].t()                       # [ROW, P]
         acc = curve.madd(acc, (g[0:NL], g[NL:2 * NL], g[2 * NL:3 * NL]))
     return curve.stack(acc)
+
+
+# ---------------------------------------------------------------------------
+# K2: bucket accumulation with the pool carried in
+
+def bucket_accumulate_cont(src, idx, acc):
+    """K1 started from a pool: src int32 [S, ROW]; idx int32 [T, P]; acc
+    int32 [4, NL, P] -> int32 [4, NL, P], lane p = acc_p + sum_t row
+    idx[t, p], the mixed adds in round order (so K1 over rounds [0, t0)
+    and K2 over [t0, T) give K1's limbs over [0, T)).
+
+    Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:
+    _bucket_kernel_rows_cont.  Bound on the H100: K1's, integer multiplies
+    (7 field muls of 100 32x32->64 products per entry), plus the pool read
+    and written once (2 x 160 B per lane).  Design: K1's body (one thread
+    per lane, the accumulator in registers for the chunk's rounds) with the
+    accumulator loaded from acc instead of set to the identity; its own C
+    entry and launch counter."""
+    native.check(src, "src", (None, ROW))
+    native.check(idx, "idx", (None, None))
+    native.check(acc, "acc", (4, NL, idx.shape[1]))
+    lib = native.kernels_for(src, idx, acc)
+    if lib is None:
+        return bucket_accumulate_cont_plain(src, idx, acc)
+    t, p = idx.shape
+    out = torch.empty_like(acc)
+    if p == 0:
+        return out
+    native.launched("bucket_accumulate_cont",
+                    lib.bpg_bucket_accumulate_cont(
+                        src.data_ptr(), idx.data_ptr(), t, p, acc.data_ptr(),
+                        out.data_ptr(), native.stream(src)))
+    return out
+
+
+def bucket_accumulate_cont_plain(src, idx, acc):
+    return _accumulate_plain(src, idx, curve.unstack(acc))
 
 
 # ---------------------------------------------------------------------------
@@ -263,11 +323,28 @@ def point_add_plain(p, q):
 # ---------------------------------------------------------------------------
 # planner
 
-def plan(digits_t, n: int, lo: int = 0):
+class Schedule(NamedTuple):
+    """One point chunk's bucket schedule (all device tensors but t, ident):
+    lane p of the pool takes the sorted entries sv[first[p] + r] for
+    rounds r with first[p] + r < end[p], else the identity row."""
+    t: int                  # rounds T
+    sv: torch.Tensor        # int32 [entries] source rows, bucket-sorted
+    first: torch.Tensor     # int64 [P] lane p's first position in sv
+    end: torch.Tensor       # int64 [P] end of lane p's bucket in sv
+    offs: torch.Tensor      # int32 [M] bucket b's first lane
+    sub: torch.Tensor       # int32 [M] bucket b's lane count
+    ident: int              # the identity row 2n
+
+    @property
+    def pool(self) -> int:
+        return self.first.shape[0]
+
+
+def schedule(digits_t, n: int, lo: int = 0) -> Schedule:
     """digits_t [k*W, h] signed digits (device) of the source points lo ..
-    lo+h-1 of an n-point source -> (idx int32 [T, P], offs int32 [M], sub
-    int32 [M]) with M = k*W*NB.  Source layout [P | -P | identity]: point
-    lo+i is row lo+i, its negation row n+lo+i, the identity row 2n."""
+    lo+h-1 of an n-point source -> its Schedule, M = k*W*NB buckets.
+    Source layout [P | -P | identity]: point lo+i is row lo+i, its
+    negation row n+lo+i, the identity row 2n."""
     dev = digits_t.device
     wt, h = digits_t.shape
     m = wt * NB
@@ -289,20 +366,56 @@ def plan(digits_t, n: int, lo: int = 0):
     pool = int(sub.sum())
     sub_d = torch.from_numpy(sub.astype(np.int32)).to(dev)
     offs_d = torch.from_numpy(offs.astype(np.int32)).to(dev)
-    if pool == 0:
-        return (torch.empty((t, 0), dtype=torch.int32, device=dev),
-                offs_d, sub_d)
     coffs_d = torch.from_numpy(coffs.astype(np.int64)).to(dev)
     seg = torch.repeat_interleave(torch.arange(m, device=dev),
                                   sub_d.long(), output_size=pool)
     lane = torch.arange(pool, device=dev)
     # lane p of bucket b takes sorted entries coffs[b] + (p - offs[b])*T + r
     first = coffs_d[seg] + (lane - offs_d[seg].long()) * t
-    rank = first[None, :] + torch.arange(t, device=dev)[:, None]
-    idx = torch.where(rank < coffs_d[seg + 1][None, :],
-                      sv[rank.clamp(max=total - 1)],
-                      torch.full_like(sv[:1], 2 * n))
-    return idx.contiguous(), offs_d, sub_d
+    return Schedule(t, sv, first, coffs_d[seg + 1], offs_d, sub_d, 2 * n)
+
+
+def idx_rows(s: Schedule, t0: int, t1: int):
+    """Rounds t0 .. t1-1 of the schedule's idx: int32 [t1 - t0, P], the
+    source row each lane adds in each round (no larger array is made)."""
+    dev = s.sv.device
+    if s.pool == 0:
+        return torch.empty((t1 - t0, 0), dtype=torch.int32, device=dev)
+    rank = s.first[None, :] + torch.arange(t0, t1, device=dev)[:, None]
+    return torch.where(rank < s.end[None, :],
+                       s.sv[rank.clamp(max=s.sv.shape[0] - 1)],
+                       torch.full_like(s.sv[:1], s.ident)).contiguous()
+
+
+def plan(digits_t, n: int, lo: int = 0):
+    """The whole idx of one point chunk at once: (idx int32 [T, P], offs
+    int32 [M], sub int32 [M]) of `schedule`."""
+    s = schedule(digits_t, n, lo)
+    return idx_rows(s, 0, s.t), s.offs, s.sub
+
+
+def accumulate(src, s: Schedule, slot_budget: int):
+    """The pool int32 [4, NL, P] of one schedule: one K1 over all T rounds,
+    or, when T*P passes slot_budget (0: never), K1 over the first
+    max(1, slot_budget // P) rounds and K2 over each later chunk of as
+    many."""
+    tc = s.t
+    if slot_budget and s.t * s.pool > slot_budget:
+        tc = max(1, slot_budget // s.pool)
+    pool = bucket_accumulate(src, idx_rows(s, 0, tc))
+    for t0 in range(tc, s.t, tc):
+        pool = bucket_accumulate_cont(src, idx_rows(s, t0, min(t0 + tc, s.t)),
+                                      pool)
+    return pool
+
+
+def max_stack_k() -> int:
+    """Most stacked scalar vectors per MSM launch: 11, the JAX package's
+    max_stack_k (its lane pool of k*W*NB lanes under the TPU's 49,152-lane
+    VMEM cap), kept so that batched proofs group as they do there.  On the
+    H100 it bounds the schedule's sort: k*W*h int64 keys per point chunk
+    (11 * 32 * 2^17 * 8 B = 369 MB)."""
+    return 11
 
 
 # ---------------------------------------------------------------------------
@@ -344,23 +457,33 @@ def points_from_cols(cols):
     return [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
 
 
-def msm_digits_t(digits_t, src, n: int, point_chunk: int = None):
+def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
+                 slot_budget: int = None):
     """digits_t int8 [k*W, n] on src's device over the rows src -> int32
-    [4, NL, k] extended points (no readback but plan's counts, one per
-    chunk).  Sources of more than `point_chunk` (default POINT_CHUNK)
-    points run in chunks whose window sums K7 adds before Horner."""
+    [4, NL, k] extended points (no readback but the schedule's counts, one
+    per chunk).  More than max_stack_k() vectors split into launches of at
+    most that many.  Sources of more than `point_chunk` (default
+    POINT_CHUNK) points run in chunks whose window sums K7 adds before
+    Horner; a chunk of more than `slot_budget` (default SLOT_BUDGET; 0:
+    no limit) T*P slots runs its rounds in chunks (K1, then K2)."""
     k = digits_t.shape[0] // W
     if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
             or digits_t.device != src.device):
         raise ValueError(f"digits {tuple(digits_t.shape)} on "
                          f"{digits_t.device} / source rows {src.shape[0]} on "
                          f"{src.device}: expected [k*W, {n}] / {2 * n + 1}")
+    k_max = max_stack_k()
+    if k > k_max:
+        return torch.cat([msm_digits_t(digits_t[v * W:(v + k_max) * W], src,
+                                       n, point_chunk, slot_budget)
+                          for v in range(0, k, k_max)], dim=2)
     chunk = point_chunk or POINT_CHUNK
+    budget = SLOT_BUDGET if slot_budget is None else slot_budget
     ws = None
     for lo in range(0, max(n, 1), chunk):
-        idx, offs, sub = plan(digits_t[:, lo:lo + chunk], n, lo)
-        part = window_sums(bucket_merge(bucket_accumulate(src, idx), offs,
-                                        sub))
+        s = schedule(digits_t[:, lo:lo + chunk], n, lo)
+        part = window_sums(bucket_merge(accumulate(src, s, budget), s.offs,
+                                        s.sub))
         ws = part if ws is None else point_add(ws, part)
     return horner(ws, k)
 

@@ -74,11 +74,20 @@ class ProverVectors:
     def t_poly(self):
         """The six t-poly coefficients t1..t6 as canonical ints, from one
         readback of the nine inner products."""
-        i = fl.limbs_to_ints(flvec.inner(
+        return self.t_poly_from(self.t_poly_device())
+
+    def t_poly_device(self):
+        """The nine inner products of the t-poly as device rows [9, NW]."""
+        return flvec.inner(
             torch.stack([self.l1, self.l1, self.l2, self.l2, self.l3,
                          self.l1, self.l3, self.l2, self.l3]),
             torch.stack([self.r0, self.r1, self.r0, self.r1, self.r0,
-                         self.r3, self.r1, self.r3, self.r3])))
+                         self.r3, self.r1, self.r3, self.r3]))
+
+    @staticmethod
+    def t_poly_from(parts):
+        """t_poly_device's rows, read back -> t1..t6 as canonical ints."""
+        i = fl.limbs_to_ints(parts)
         return (i[0], (i[1] + i[2]) % L, (i[3] + i[4]) % L,
                 (i[5] + i[6]) % L, i[7], i[8])
 

@@ -28,10 +28,25 @@ Phases (one line each; any failure raises and exits non-zero):
   5. K7 (the lane-wise add of the chunk combine) against its plain version
      on merkle32's own chunk window sums recorded from that run, and on
      one wide launch (2^17 lanes of real points); K1's time per entry on
-     merkle32's commitment MSM with and without point chunks.
+     merkle32's commitment MSM with and without point chunks;
+  6. the batch path (lang.batch.prove_batch / verify_batch, launch counters
+     reset just before it and read just after): the two batch pins of
+     tests/port_pins.json (three 16-bit BOUND witnesses on a host table
+     and on a device table) byte-equal; example x 3 and merkle32 x 3
+     (three copies of the pinned witness, differing by their blindings)
+     stacked (first, with the device hashing of the MiMC images; and warm)
+     and with max_k=3, byte-equal to each other, all verifying, a
+     tampered proof rejected; merkle32's stacked k = 9 commitment MSM
+     over its 2^17-point chunk runs round chunks, so K2 must launch;
+  7. K2 against its plain version on one round chunk of that MSM; K1 + K2
+     round-chunked against one unchunked K1 on the same digits (kernels
+     alone, and the whole MSM with its peak memory);
+  8. warm ms per witness of a batch of 8 64-bit BOUND witnesses against 8
+     sequential proves.
 Then the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the larger of its products over the card's
-int32 multiply rate and its bytes over the memory rate), and the last line
+int32 multiply rate and its bytes over the memory rate; launches are the
+single-proof path's and the batch path's together), and the last line
 {"ok": true, "device": {...}}.
 """
 import hashlib
@@ -50,6 +65,8 @@ MSM_CU = "bulletproof_gadgets_tpu_torch/csrc/msm_kernels.cu"
 KERNELS = {   # name: (source, the TPU kernel it replaces)
     "bucket_accumulate": (MSM_CU,
                           "bulletproof_gadgets_tpu/ops/msm_serial.py:852"),
+    "bucket_accumulate_cont": (
+        MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:881"),
     "bucket_merge": (MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:979"),
     "window_sums": (MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:999"),
     "horner": (MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:921"),
@@ -68,6 +85,7 @@ INT32_MUL_PER_S = 64 * 132 * 1.98e9
 BYTES_PER_S = 3.35e12
 PRODUCTS_PER_MUL = 100          # one field mul: 10 x 10 limb products
 MULS = {"madd": 7, "padd": 9, "dbl": 8, "padd_cached": 8, "inv": 265}
+BOUND64_BATCH = 8               # witnesses of phase 8's batch
 
 
 def say(msg):
@@ -187,6 +205,220 @@ def k1_per_entry(ms, digits, src, n, chunk):
         total_ms += timed(lambda: ms.bucket_accumulate(src, idx), 5)[0]
         entries += int((idx != 2 * n).sum())
     return 1e6 * total_ms / entries, total_ms, entries
+
+
+def batch_path(pins, ms):
+    """Phase 6: the batch pins, then example x 3 and merkle32 x 3 stacked
+    and with max_k=3, with the launch counters reset just before and read
+    just after.  Returns (launches, the first K2 call's inputs on
+    merkle32, merkle32's stacked commitment digits (digits, src, n))."""
+    from bulletproof_gadgets_tpu_torch.core import msm as core_msm
+    from bulletproof_gadgets_tpu_torch.lang.batch import (prove_batch,
+                                                         verify_batch)
+    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+    from bulletproof_gadgets_tpu_torch.ops import mimc_kernels
+    conts, stacked, hashed = [], [], []
+    cont, msm_digits_t = ms.bucket_accumulate_cont, ms.msm_digits_t
+    hash_batch = mimc_kernels.mimc_hash_batch
+
+    def timed_hash(preimages, device):
+        t0 = time.time()
+        out = hash_batch(preimages, device)
+        hashed.append((preimages, time.time() - t0))
+        return out
+
+    def host_hash_s(preimages):
+        """The host sponge's time for the same preimages (no cache)."""
+        from bulletproof_gadgets_tpu_torch.models import mimc
+        from bulletproof_gadgets_tpu_torch.utils.conversions import (
+            be_to_scalars)
+        t0 = time.time()
+        for data in preimages:
+            mimc.mimc_sponge([v.v for v in mimc.pad_preimage(
+                be_to_scalars(data))])
+        return time.time() - t0
+
+    def record_cont(src, idx, acc):
+        if not conts:
+            conts.append((src, idx, acc))
+        return cont(src, idx, acc)
+
+    def record_stacked(digits, src, n, *a, **kw):
+        if not stacked and digits.shape[0] == 9 * ms.W and n > ms.POINT_CHUNK:
+            stacked.append((digits, src, n))
+        return msm_digits_t(digits, src, n, *a, **kw)
+
+    def run(name, st, witnesses, **kw):
+        blind_rng.set_seed(pins["seed"])
+        try:
+            t0 = time.time()
+            out = prove_batch(name, st["instance"], witnesses, st["gadgets"],
+                              **kw)
+            return out, time.time() - t0
+        finally:
+            blind_rng.set_seed(None)
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    for name in ms.LAUNCHES:
+        ms.LAUNCHES[name] = 0
+    ms.bucket_accumulate_cont, ms.msm_digits_t = record_cont, record_stacked
+    mimc_kernels.mimc_hash_batch = timed_hash
+    try:
+        for pin, b in pins["batches"].items():
+            core_msm.set_table_min_size(b["table_min_size"])
+            try:
+                out, t_b = run(b["name"], b, b["witnesses"])
+            finally:
+                core_msm.set_table_min_size(None)
+            if ([sha(p) for p, _, _ in out] != b["proof_sha256"]
+                    or [sha(c.encode()) for _, _, c in out]
+                    != b["coms_sha256"]):
+                raise AssertionError(f"{pin}: proofs or .coms differ from "
+                                     "the JAX package's prove_batch pin")
+            say(f"batch pin {pin}: 3 proofs and .coms equal the pin "
+                f"({t_b:.2f} s)")
+        for name in ("example", "merkle32"):
+            st = pins["statements"][name]
+            k2 = ms.LAUNCHES["bucket_accumulate_cont"]
+            del hashed[:]
+            # the first batch also hashes the MiMC images on the device
+            first_out, t_f = run(name, st, [st["witness"]] * 3)
+            todo = [d for pre, _ in hashed for d in pre]
+            images = (f"{len(todo)} images on the device in "
+                      f"{sum(t for _, t in hashed):.2f} s, on the host "
+                      f"{host_hash_s(todo):.3f} s")
+            k2 = ms.LAUNCHES["bucket_accumulate_cont"] - k2
+            single_out, t_u = run(name, st, [st["witness"]] * 3, max_k=3)
+            stacked_out, t_s = run(name, st, [st["witness"]] * 3)
+            if not first_out == single_out == stacked_out:
+                raise AssertionError(f"{name} x 3: stacked and max_k=3 "
+                                     "batches differ")
+            if len({p for p, _, _ in stacked_out}) != 3:
+                raise AssertionError(f"{name} x 3: proofs not distinct")
+            proofs = [(p, c) for p, _, c in stacked_out]
+            bad = bytearray(proofs[0][0])
+            bad[len(bad) // 2] ^= 1
+            t0 = time.time()
+            oks = verify_batch(name, st["instance"],
+                               proofs + [(bytes(bad), proofs[0][1])],
+                               st["gadgets"])
+            t_v = time.time() - t0
+            if oks != [True, True, True, False]:
+                raise AssertionError(f"{name} x 3: verify_batch {oks}, want "
+                                     "3 x true then false (tampered)")
+            say(f"batch {name} x 3: stacked first {t_f:.2f} s (with the "
+                f"image hashing: {images}), then max_k=3 {t_u:.2f} s, stacked "
+                f"{t_s:.2f} s, byte-equal; verify_batch {t_v:.2f} s: 3 true, "
+                f"tampered false; K2 launches in the first stacked batch: "
+                f"{k2}")
+            if name == "merkle32" and k2 == 0:
+                raise AssertionError("merkle32 x 3: K2 was not launched")
+        launches = dict(ms.LAUNCHES)
+    finally:
+        ms.bucket_accumulate_cont, ms.msm_digits_t = cont, msm_digits_t
+        mimc_kernels.mimc_hash_batch = hash_batch
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels not launched by the batch path: "
+                             f"{idle}")
+    say(f"batch path launches: {launches}")
+    return launches, conts[0], stacked[0]
+
+
+def check_cont(ms, src, idx, acc):
+    """Phase 7: K2 against its plain version on one round chunk of the
+    merkle32 batch's stacked commitment MSM: K1's bound rule (7 field muls
+    per live entry) and the bytes of src, idx, the pool in and out."""
+    entries = int((idx != src.shape[0] - 1).sum())
+    return compare("bucket_accumulate_cont", "merkle32 x 3 round chunk",
+                   lambda: ms.bucket_accumulate_cont(src, idx, acc),
+                   lambda: ms.bucket_accumulate_cont_plain(src, idx, acc),
+                   f"T={idx.shape[0]} P={idx.shape[1]}",
+                   entries * MULS["madd"], (src, idx, acc))
+
+
+def round_chunk_times(ms, digits, src, n):
+    """Phase 7: on merkle32's stacked k = 9 commitment digits, the first
+    point chunk's accumulation as K1 + K2 over round chunks of
+    SLOT_BUDGET // P rounds against one K1 over all rounds (idx built
+    beforehand; CUDA events, mean of 5 after a warm-up), and the whole
+    msm_digits_t with slot_budget=SLOT_BUDGET and 0 (no round chunks):
+    time and peak device memory."""
+    import torch
+    s = ms.schedule(digits[:, :ms.POINT_CHUNK], n, 0)
+    tc = max(1, ms.SLOT_BUDGET // s.pool)
+    chunks = [ms.idx_rows(s, t0, min(t0 + tc, s.t))
+              for t0 in range(0, s.t, tc)]
+    whole = ms.idx_rows(s, 0, s.t)
+
+    def chunked():
+        pool = ms.bucket_accumulate(src, chunks[0])
+        for idx in chunks[1:]:
+            pool = ms.bucket_accumulate_cont(src, idx, pool)
+        return pool
+    t_c, out_c = timed(chunked, 5)
+    t_w, out_w = timed(lambda: ms.bucket_accumulate(src, whole), 5)
+    if not torch.equal(out_c, out_w):
+        raise AssertionError("K1 + K2 round-chunked != one K1")
+    entries = int((whole != 2 * n).sum())
+    say(f"round chunks on merkle32 x 3's k=9 commitment MSM, first point "
+        f"chunk: T={s.t} P={s.pool} ({s.t * s.pool} slots, {entries} "
+        f"entries), {len(chunks)} chunks of {tc} rounds: K1 + "
+        f"{len(chunks) - 1} K2 {t_c:.3f} ms vs one K1 {t_w:.3f} ms (equal "
+        "pools)")
+    del chunks, whole
+    for budget in (ms.SLOT_BUDGET, 0):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_m, _ = timed(lambda: ms.msm_digits_t(digits, src, n,
+                                               slot_budget=budget), 5)
+        peak = torch.cuda.max_memory_allocated() - base
+        say(f"msm_digits_t on those digits, slot_budget={budget}: "
+            f"{t_m:.3f} ms, peak {peak / 2**20:.1f} MiB above its inputs")
+
+
+def bound64_per_witness(device):
+    """Phase 8: a batch of BOUND64_BATCH 64-bit BOUND witnesses against as
+    many sequential proves, warm (one untimed run of each first): ms per witness on the
+    host clock (each ends in a readback); all verify."""
+    from bulletproof_gadgets_tpu_torch.lang.batch import (prove_batch,
+                                                         verify_batch)
+    from bulletproof_gadgets_tpu_torch.lang.prove import prove
+    # the JAX package's batch benchmark statement (scripts/bench_batch.py)
+    gadgets = "BOUND W0 I0 I1"
+    instance = "I0 = 0x00\nI1 = 0xffffffffffffffff\n"
+    r = random.Random(64)
+    witnesses = [f"W0 = 0x{r.randrange(1, 1 << 63):016x}\n"
+                 for _ in range(BOUND64_BATCH)]
+
+    def batch():
+        return prove_batch("bound64", instance, witnesses, gadgets)
+
+    def sequential():
+        out = []
+        for w in witnesses:
+            coms = []
+            proof, _ = prove("bound64", instance, w, gadgets, coms)
+            out.append((proof, "".join(coms)))
+        return out
+    times = {}
+    for label, fn in (("batch", batch), ("sequential", sequential)):
+        fn()
+        t0 = time.time()
+        out = fn()
+        times[label] = time.time() - t0
+        pairs = [(o[0], o[-1]) for o in out]
+        if verify_batch("bound64", instance, pairs, gadgets) != \
+                [True] * BOUND64_BATCH:
+            raise AssertionError(f"bound64 {label}: a proof failed to verify")
+    n = BOUND64_BATCH
+    say(f"64-bit BOUND x {n} on {device}: batch "
+        f"{1e3 * times['batch'] / n:.2f} ms per witness, sequential "
+        f"{1e3 * times['sequential'] / n:.2f} ms per witness (warm, all "
+        "verify)")
 
 
 def main() -> int:
@@ -380,7 +612,8 @@ def main() -> int:
     if chunked[0] == 0 or launches["point_add"] != chunked[0]:
         raise AssertionError(f"merkle32: {chunked[0]} chunked MSMs, "
                              f"{launches['point_add']} K7 launches")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k, v in launches.items()
+            if v == 0 and k != "bucket_accumulate_cont"]
     if idle:
         raise AssertionError(f"kernels not launched by the main path: {idle}")
     say(f"main path launches: {launches}")
@@ -401,11 +634,18 @@ def main() -> int:
             f"of {chunk} points ({-(-m_n // chunk)} chunks): {entries} "
             f"entries, {total:.3f} ms, {ns:.3f} ns per entry")
 
+    # 6. the batch path; 7. K2 and the round chunks; 8. ms per witness
+    batch_launches, k2_in, stacked = batch_path(pins, ms)
+    results["bucket_accumulate_cont"] = check_cont(ms, *k2_in)
+    round_chunk_times(ms, *stacked)
+    bound64_per_witness(device)
+
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src_file,
-         "replaces": replaces, "launches": launches[name],
+         "replaces": replaces,
+         "launches": launches[name] + batch_launches[name],
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}

@@ -9,6 +9,18 @@ circuit sizes and the sha256 of the proof and of the `.coms` text.
 
     python scripts/freeze_port_pins.py                 # all four (an hour)
     python scripts/freeze_port_pins.py --only bound16  # a subset
+    python scripts/freeze_port_pins.py --batch         # the batch pins
+
+`--batch` writes the batch pins instead (under "batches"): three 16-bit
+BOUND witnesses proved by the JAX package's `lang.batch.prove_batch` under
+the same seed, once on the host table (`batch_bound16x3_host`) and once
+with the generator table forced onto the device path
+(`set_table_min_size(8)`: the lockstep protocol with its combined
+commitment MSM, t-poly fetch and grouped IPA, the Pallas kernels in
+interpret mode; `batch_bound16x3_table`).  A batch's bytes are not those
+of sequential proves: every witness is prepared (its commitments' blindings
+drawn) before any proof starts, and on a device table the lockstep draws
+every proof's commitment blindings before any proof's t-poly blindings.
 
 The nine-line `example` pads to 2^14 generators and its host MSMs over the
 32,770-point table take minutes; `merkle32` (a depth-5 MiMC Merkle
@@ -140,9 +152,42 @@ def freeze(name: str) -> dict:
             "coms_sha256": hashlib.sha256(coms_text.encode()).hexdigest()}
 
 
+# three 16-bit BOUND witnesses of the bound16 statement (0x0539 is its own)
+BATCH_WITNESSES = ["W0 = 0x0539\n", "W0 = 0x0042\n", "W0 = 0x0fff\n"]
+BATCHES = {"batch_bound16x3_host": 1 << 30, "batch_bound16x3_table": 8}
+
+
+def freeze_batch(pin: str) -> dict:
+    from bulletproof_gadgets_tpu.lang.batch import prove_batch, verify_batch
+    gadgets, instance, _ = STATEMENTS["bound16"]()
+    core_msm.set_table_min_size(BATCHES[pin])
+    rng.set_seed(SEED)
+    t0 = time.time()
+    try:
+        results = prove_batch("bound16", instance, BATCH_WITNESSES, gadgets)
+    finally:
+        rng.set_seed(None)
+    t_prove = time.time() - t0
+    oks = verify_batch("bound16", instance,
+                       [(p, c) for p, _, c in results], gadgets)
+    core_msm.set_table_min_size(1 << 30)
+    assert oks == [True] * len(results), \
+        f"{pin}: the JAX package rejects its own proofs {oks}"
+    print(f"{pin}: {len(results)} proofs, prove_batch {t_prove:.1f} s",
+          flush=True)
+    return {"name": "bound16", "gadgets": gadgets, "instance": instance,
+            "witnesses": BATCH_WITNESSES, "table_min_size": BATCHES[pin],
+            "proof_sha256": [hashlib.sha256(p).hexdigest()
+                             for p, _, _ in results],
+            "coms_sha256": [hashlib.sha256(c.encode()).hexdigest()
+                            for _, _, c in results]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*", choices=sorted(STATEMENTS))
+    ap.add_argument("--batch", action="store_true",
+                    help="freeze the batch pins only")
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     core_msm.set_table_min_size(1 << 30)
@@ -151,8 +196,13 @@ def main(argv=None):
         with open(args.out) as f:
             pins = json.load(f)
         assert pins["seed"] == SEED, "pins were frozen under another seed"
-    for name in args.only or list(STATEMENTS):
-        pins["statements"][name] = freeze(name)
+    if args.batch:
+        jobs = [("batches", pin, freeze_batch) for pin in BATCHES]
+    else:
+        jobs = [("statements", name, freeze)
+                for name in args.only or list(STATEMENTS)]
+    for group, name, fn in jobs:
+        pins.setdefault(group, {})[name] = fn(name)
         with open(args.out, "w") as f:
             json.dump(pins, f, indent=1, sort_keys=True)
             f.write("\n")

@@ -5,8 +5,8 @@
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
 then --reps times warm (end-to-end wall times), then once warm with every
 stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
-stages (host digit recode, plan incl. its count readback, each kernel, the
-result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
+stages (host digit recode, schedule incl. its count readback, the idx
+rows, each kernel, the result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
 table, point-chunked past msm_serial.POINT_CHUNK points, its chunks
 combined by K7 `point_add`), the device vectors (`flatten.flatten`, the
 commitment digits, `ProverVectors` build / t_poly / lr / factors,
@@ -112,7 +112,8 @@ def main(argv=None) -> int:
 
     pv = prover_device.ProverVectors
     stages = [(ms, n) for n in (
-        "signed_digits", "plan", "bucket_accumulate", "bucket_merge",
+        "signed_digits", "schedule", "idx_rows", "bucket_accumulate",
+        "bucket_accumulate_cont", "bucket_merge",
         "window_sums", "point_add", "horner", "points_from_cols",
         "msm_many", "msm_digits_t")] + [
         (flatten, "flatten"), (prover_device, "commitment_digits"),

@@ -7,7 +7,8 @@ the `cuda` fixture, not at import).  The card runs them with
 
 (`--noconftest`: the suite's conftest imports JAX, which the GPU machine
 does not need).  chip_smoke.py runs the same comparisons at the example
-statement's full shapes (K7 on merkle32's chunk window sums).
+statement's full shapes (K7 on merkle32's chunk window sums, K2 on a round
+chunk of merkle32's batched commitments).
 """
 import random
 
@@ -52,12 +53,16 @@ def stage_inputs(cuda):
     pool = ms.bucket_accumulate(src, idx)
     buckets = ms.bucket_merge(pool, offs, sub)
     ws = ms.window_sums(buckets)
+    # K2's inputs: the rounds after the first two, the pool of the first two
+    head = ms.bucket_accumulate(src, idx[:2].contiguous())
     return dict(src=src, idx=idx, offs=offs, sub=sub, pool=pool,
-                buckets=buckets, ws=ws, k=len(vecs), pts=pts, vecs=vecs)
+                buckets=buckets, ws=ws, k=len(vecs), pts=pts, vecs=vecs,
+                idx_tail=idx[2:].contiguous(), head=head)
 
 
 STAGES = {
     "bucket_accumulate": ("src", "idx"),
+    "bucket_accumulate_cont": ("src", "idx_tail", "head"),
     "bucket_merge": ("pool", "offs", "sub"),
     "window_sums": ("buckets",),
     "horner": ("ws", "k"),
@@ -74,6 +79,8 @@ def test_kernel_equals_plain(stage, stage_inputs):
     want = getattr(ms, stage + "_plain")(*args)
     assert got.is_cuda and got.dtype == torch.int32
     assert torch.equal(got, want)          # same limbs, tolerance 0
+    if stage == "bucket_accumulate_cont":  # K1 then K2 = K1 over all rounds
+        assert torch.equal(got, stage_inputs["pool"])
 
 
 def test_msm_equals_host(stage_inputs):
@@ -135,6 +142,23 @@ def test_chunked_msm_equals_host(stage_inputs):
     cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
                            point_chunk=512)
     assert ms.LAUNCHES["point_add"] == before + 4
+    want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
+    assert [g.compress() for g in ms.points_from_cols(cols)] == \
+        [w.compress() for w in want]
+
+
+def test_round_chunked_msm_equals_host(stage_inputs):
+    """The k=3 MSM with its rounds one per chunk (slot budget 1: K1 on the
+    first round, K2 on each later one) equals the host MSM."""
+    src, vecs = stage_inputs["src"], stage_inputs["vecs"]
+    digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
+    d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
+    before = ms.LAUNCHES["bucket_accumulate_cont"]
+    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
+                           slot_budget=1)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["bucket_accumulate_cont"] == \
+        before + stage_inputs["idx"].shape[0] - 1
     want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]

@@ -165,3 +165,102 @@ def test_wrappers_check_their_tensors(points):
                         torch.tensor([3, 3], dtype=torch.int32))
     with pytest.raises(ValueError):                    # 3 points, 5 rows
         ms.msm_many([[1, 2, 3]], src[:5], 3)
+
+
+def _digits_t(vecs):
+    digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
+                             for vec in vecs], 1)
+    return torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
+
+
+def test_cont_plain_continues_plain(points):
+    """K2's plain version over rounds [t0, T) started from K1's plain pool
+    over [0, t0) gives K1's limbs over all T rounds, for every split."""
+    n = 130
+    src = torch.from_numpy(ms.prep_source(points[:n]))
+    idx, _, _ = ms.plan(_digits_t(_vectors(3, n, seed=21)), n)
+    whole = ms.bucket_accumulate_plain(src, idx)
+    assert idx.shape[0] >= 4
+    for t0 in range(1, idx.shape[0]):
+        head = ms.bucket_accumulate_plain(src, idx[:t0].contiguous())
+        got = ms.bucket_accumulate_cont_plain(src, idx[t0:].contiguous(),
+                                              head)
+        assert torch.equal(got, whole)
+
+
+@pytest.mark.parametrize("point_chunk", [None, 64])
+def test_round_chunked_msm_matches_host(points, point_chunk, monkeypatch):
+    """A k=3 MSM over 258 points whose rounds run one per chunk (slot
+    budget 1: K1 on round 0, K2's plain version carrying the pool through
+    each later round), also in point chunks of 64, equals the JAX
+    package's host MSM."""
+    n = 258
+    pts = points[:n]
+    src = torch.from_numpy(ms.prep_source(pts))
+    vecs = _vectors(3, n, seed=31)
+    conts = []
+    real = ms.bucket_accumulate_cont_plain
+    monkeypatch.setattr(ms, "bucket_accumulate_cont_plain",
+                        lambda s, i, a: conts.append(i.shape) or real(s, i, a))
+    cols = ms.msm_digits_t(_digits_t(vecs), src, n, point_chunk=point_chunk,
+                           slot_budget=1)
+    chunks = -(-n // (point_chunk or n))
+    assert len(conts) >= 3 * chunks                  # T >= 4 per chunk
+    assert all(shape[0] == 1 for shape in conts)
+    want = [msm_host(v, _as_jax(pts)) for v in vecs]
+    assert [g.compress() for g in ms.points_from_cols(cols)] == \
+        [w.compress() for w in want]
+    # the same MSM with no round chunks and with the default budget
+    for budget in (0, None):
+        assert torch.equal(ms.msm_digits_t(_digits_t(vecs), src, n,
+                                           point_chunk=point_chunk,
+                                           slot_budget=budget), cols)
+
+
+def test_stack_cap_changes_no_point(points, monkeypatch):
+    """More stacked vectors than max_stack_k() split along the vector axis
+    into launches of at most that many: the same limbs as one launch."""
+    n = 130
+    src = torch.from_numpy(ms.prep_source(points[:n]))
+    vecs = _vectors(3, n, seed=41) + _vectors(1, n, seed=42)
+    digits = _digits_t(vecs)
+    whole = ms.msm_digits_t(digits, src, n)
+    horners = []
+    real = ms.horner
+    monkeypatch.setattr(ms, "horner",
+                        lambda ws, k: horners.append(k) or real(ws, k))
+    monkeypatch.setattr(ms, "max_stack_k", lambda: 3)
+    assert torch.equal(ms.msm_digits_t(digits, src, n), whole)
+    assert horners == [3, 1]
+
+
+def test_kernel_failures_raise(points, monkeypatch, tmp_path):
+    """A kernel whose launch returns a CUDA error raises (and counts), and
+    an nvcc that fails makes the build raise: no wrapper falls back to its
+    plain version."""
+    from bulletproof_gadgets_tpu_torch import native
+
+    class Lib:
+        def bpg_bucket_accumulate_cont(self, *args):
+            return 719                             # cudaErrorLaunchFailure
+
+    src = torch.from_numpy(ms.prep_source(points[:3]))
+    idx = torch.zeros((2, 8), dtype=torch.int32)
+    acc = ms.bucket_accumulate(src, idx)
+    monkeypatch.setattr(native, "kernels_for", lambda *t: Lib())
+    monkeypatch.setattr(native, "stream", lambda t: 0)
+    before = ms.LAUNCHES["bucket_accumulate_cont"]
+    with pytest.raises(RuntimeError, match="cudaError 719"):
+        ms.bucket_accumulate_cont(src, idx, acc)
+    assert ms.LAUNCHES["bucket_accumulate_cont"] == before + 1
+    monkeypatch.undo()
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        native.build()
+    with pytest.raises(ValueError):                # a wrong pool shape
+        ms.bucket_accumulate_cont(src, idx, acc[:, :, :4].contiguous())
