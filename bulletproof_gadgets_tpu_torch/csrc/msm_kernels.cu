@@ -1,12 +1,15 @@
 // The kernels of the serial-bucket MSM (ops/msm_serial.py): the four stages
 // of one MSM (K1, K3, K4, K5), the bucket accumulation that carries its
-// pool in across round chunks (K2), and the lane-wise add that combines the
-// window sums of point chunks (K7), with a plain C interface for ctypes.
-// Each launcher runs on the given stream, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).
+// pool in across round chunks (K2), the lane-wise add that combines the
+// window sums of point chunks (K7), and the bucket accumulation of the
+// pre-transposed layouts (K8, K9, K10), with a plain C interface for
+// ctypes.  Each launcher runs on the given stream, allocates nothing, and
+// returns cudaGetLastError() (0 = launched).
 //
 // Point arrays use the [4, 10, n] int32 layout of field.cuh; source rows
 // are int32 [S, 32]: x limbs 0..9, y 10..19, t2d = x*y*2d 20..29, 2 pad.
+// Gathered coordinates (K8-K10) hold the same 30 limbs per slot, limb-major:
+// limb l of lane p's round t at g[t * round_stride + l * limb_stride + p].
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +54,44 @@ bucket_accumulate_kernel(const int32_t* __restrict__ src,
       y.v[i] = w[10 + i];
       t2d.v[i] = w[20 + i];
     }
+    acc = ge_madd(acc, x, y, t2d);
+  }
+  ge_store(out, P, lane, acc);
+}
+
+// K8 (cols, kCarry false), K9 (cols, kCarry true) and K10 (flat): K1's
+// mixed adds on coordinates gathered beforehand (ops/msm_serial.gather_cols,
+// gather_flat).  Lane p reads limb l of round t at
+// g[t * round_stride + l * limb_stride + p]: consecutive lanes read
+// consecutive addresses, so each of a round's 30 loads is coalesced across
+// the warp (K1 instead reads one scattered 128-byte row per lane).  Bound on
+// the H100: the larger of 7 field muls (700 32x32->64 products, ~42 ps at
+// the int32 multiply rate) per live slot and 120 bytes of coordinates (~36
+// ps at 3.35 TB/s) per slot read once; the two are of one size, so the
+// design reads each byte once, coalesced, keeps K1's thread per lane with
+// the accumulator in registers for all T rounds, and leaves the random
+// access to the gather pass before it.
+// Offsets are int64: a flat gather of a large MSM passes 2^31 elements.
+template <bool kCarry>
+__global__ void __launch_bounds__(kThreads)
+bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
+                               int64_t round_stride, int64_t limb_stride,
+                               int64_t T, int64_t P,
+                               const int32_t* __restrict__ acc_in,
+                               int32_t* __restrict__ out) {
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= P) return;
+  ge acc = kCarry ? ge_load(acc_in, P, lane) : ge_identity();
+  const int32_t* col = g + lane;
+  for (int64_t t = 0; t < T; t++, col += round_stride) {
+    const int32_t* q = col;
+    fe x, y, t2d;
+#pragma unroll
+    for (int i = 0; i < 10; i++, q += limb_stride) x.v[i] = __ldg(q);
+#pragma unroll
+    for (int i = 0; i < 10; i++, q += limb_stride) y.v[i] = __ldg(q);
+#pragma unroll
+    for (int i = 0; i < 10; i++, q += limb_stride) t2d.v[i] = __ldg(q);
     acc = ge_madd(acc, x, y, t2d);
   }
   ge_store(out, P, lane, acc);
@@ -134,6 +175,38 @@ int bpg_bucket_accumulate_cont(const void* src, const void* idx, int T,
                                    (cudaStream_t)stream>>>(
       (const int32_t*)src, (const int32_t*)idx, T, P, (const int32_t*)acc,
       (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K8: g int32 [T, 30, P] (rounds leading, limb-major), replacing
+// bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel.
+int bpg_bucket_accumulate_cols(const void* g, int64_t T, int64_t P,
+                               void* out, void* stream) {
+  bucket_accumulate_limbs_kernel<false><<<blocks_for(P), kThreads, 0,
+                                          (cudaStream_t)stream>>>(
+      (const int32_t*)g, 30 * P, P, T, P, nullptr, (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K9: K8 from the carried pool acc, replacing
+// bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel_cont.
+int bpg_bucket_accumulate_cols_cont(const void* g, int64_t T, int64_t P,
+                                    const void* acc, void* out,
+                                    void* stream) {
+  bucket_accumulate_limbs_kernel<true><<<blocks_for(P), kThreads, 0,
+                                         (cudaStream_t)stream>>>(
+      (const int32_t*)g, 30 * P, P, T, P, (const int32_t*)acc,
+      (int32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// K10: g int32 [30, T * P] (lane p's round t at column t * P + p),
+// replacing bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel2d.
+int bpg_bucket_accumulate_flat(const void* g, int64_t T, int64_t P,
+                               void* out, void* stream) {
+  bucket_accumulate_limbs_kernel<false><<<blocks_for(P), kThreads, 0,
+                                          (cudaStream_t)stream>>>(
+      (const int32_t*)g, P, T * P, T, P, nullptr, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

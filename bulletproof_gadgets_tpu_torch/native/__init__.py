@@ -27,11 +27,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (name, argument types): pointers and the stream are c_void_p
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# (name, argument types): pointers and the stream are c_void_p; sizes whose
+# products can pass 2^31 are c_int64
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _FUNCS = {
     "bpg_bucket_accumulate": [_P, _P, _I, _I, _P, _P],
     "bpg_bucket_accumulate_cont": [_P, _P, _I, _I, _P, _P, _P],
+    "bpg_bucket_accumulate_cols": [_P, _I64, _I64, _P, _P],
+    "bpg_bucket_accumulate_cols_cont": [_P, _I64, _I64, _P, _P, _P],
+    "bpg_bucket_accumulate_flat": [_P, _I64, _I64, _P, _P],
     "bpg_bucket_merge": [_P, _I, _P, _P, _I, _P, _P],
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
@@ -41,7 +45,8 @@ _FUNCS = {
 
 LAUNCHES = {"bucket_accumulate": 0, "bucket_accumulate_cont": 0,
             "bucket_merge": 0, "window_sums": 0, "horner": 0,
-            "ladder_fold": 0, "point_add": 0}
+            "ladder_fold": 0, "point_add": 0, "bucket_accumulate_cols": 0,
+            "bucket_accumulate_cols_cont": 0, "bucket_accumulate_flat": 0}
 
 _LIB = None
 BUILD_LOG = ""

@@ -74,7 +74,8 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
             gc = hc = fl.const(fl.R, a_d).expand(n_seg, fl.NW)
             seg_masks, local = round_masks(n_seg, dev), 0
         dig = _scalars(a_d, b_d, gc, hc, wr2, seg_masks[local])
-        cols = msm_serial.msm_digits_t(dig, src, 2 * n_seg + 2)
+        cols = msm_serial.msm_digits_t(dig, src, 2 * n_seg + 2,
+                                       layout=table.layout)
         p_l, p_r = msm_serial.points_from_cols(cols)
         L_vec.append(p_l.compress())
         R_vec.append(p_r.compress())
@@ -132,7 +133,8 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
                                      prev["hi"])
         dig = _scalars(a_d, b_d, gc, hc, wr2, mk)       # [B*64, m]
         pts = msm_serial.points_from_cols(
-            msm_serial.msm_digits_t(dig, table.src, table.m))
+            msm_serial.msm_digits_t(dig, table.src, table.m,
+                                    layout=table.layout))
         chs = []
         for i, (t, (L_vec, R_vec)) in enumerate(zip(transcripts, outs)):
             L_vec.append(pts[2 * i].compress())

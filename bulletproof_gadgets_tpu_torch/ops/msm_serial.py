@@ -24,6 +24,23 @@ One MSM of k scalar vectors over an n-point source:
            and one add per window.
   readback the k extended points, once; compressed on the host.
 
+Layouts of the bucket accumulation (`LAYOUTS`, the `layout` argument of
+msm_digits_t / GeneratorTable, engine.register's `msm_layout`; the JAX
+package's BPG_TPU_MSM_ROWS / BPG_TPU_MSM_RCHUNK switches):
+  rows     K1 / K2 gather each lane's source row inside the kernel (the
+           default, as in the JAX package).
+  cols     `gather_cols` first builds the rounds-leading coordinate blocks
+           int32 [T, 3*NL, P] (x | y | t2d limbs of round t, limb-major),
+           then K8 bucket_accumulate_cols reads them coalesced; past the
+           slot budget K8 runs the first round chunk and K9
+           bucket_accumulate_cols_cont each later one, so one chunk's
+           gather exists at a time.
+  flat     `gather_flat` builds one int32 [3*NL, T*P] gather (lane p's
+           round t at column t*P + p) and K10 bucket_accumulate_flat runs
+           all T rounds; never round-chunked (the JAX package chunks only
+           with more than one round per grid step).
+The three give the same limbs (the same mixed adds in the same order).
+
 Each kernel's wrapper checks its tensors' dtype, shape, contiguity and
 device, launches the CUDA kernel for CUDA tensors (csrc/msm_kernels.cu,
 built by bulletproof_gadgets_tpu_torch.native) and counts the launch in
@@ -93,6 +110,13 @@ POINT_CHUNK = 1 << 17     # most source points per chunk (msm_digits_t)
 SLOT_BUDGET = 18 * 2**20  # most T*P slots per K1/K2 launch (msm_digits_t)
 
 LAUNCHES = native.LAUNCHES       # every kernel's count, K6's included
+LAYOUTS = ("rows", "cols", "flat")
+
+
+def check_layout(layout):
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown MSM layout {layout!r}, expected one of "
+                         f"{LAYOUTS}")
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +156,15 @@ def _accumulate_plain(src, idx, acc):
     if bool(((idx < 0) | (idx >= src.shape[0])).any()):
         raise ValueError("idx: row index outside src")
     rows = src.to(torch.int64)
-    for r in range(idx.shape[0]):
-        g = rows[idx[r].long()].t()                       # [ROW, P]
+    return _madd_rounds(acc, (rows[idx[r].long()].t()      # [ROW, P]
+                              for r in range(idx.shape[0])))
+
+
+def _madd_rounds(acc, rounds):
+    """acc plus each round's affine columns ([>= 3*NL, P]: x | y | t2d
+    limbs), by mixed addition in round order -> int32 [4, NL, P]."""
+    for g in rounds:
+        g = g.to(torch.int64)
         acc = curve.madd(acc, (g[0:NL], g[NL:2 * NL], g[2 * NL:3 * NL]))
     return curve.stack(acc)
 
@@ -173,6 +204,115 @@ def bucket_accumulate_cont(src, idx, acc):
 
 def bucket_accumulate_cont_plain(src, idx, acc):
     return _accumulate_plain(src, idx, curve.unstack(acc))
+
+
+# ---------------------------------------------------------------------------
+# the pre-transposed layouts: gathers, K8, K9, K10
+
+def gather_cols(src, idx):
+    """src int32 [S, ROW]; idx int32 [T, P] -> int32 [T, 3*NL, P]: round
+    t's x | y | t2d limbs of the rows idx[t, :], limb-major (the JAX
+    package's _gather_g3; the rows are already int32, so nothing widens)."""
+    t, p = idx.shape
+    g = src[:, :3 * NL].index_select(0, idx.reshape(-1).long())
+    return g.view(t, p, 3 * NL).transpose(1, 2).contiguous()
+
+
+def gather_flat(src, idx):
+    """src int32 [S, ROW]; idx int32 [T, P] -> int32 [3*NL, T*P]: column
+    t*P + p holds the x | y | t2d limbs of row idx[t, p] (the JAX package's
+    flat gather for _bucket_kernel2d)."""
+    g = src[:, :3 * NL].index_select(0, idx.reshape(-1).long())
+    return g.t().contiguous()
+
+
+def bucket_accumulate_cols(g):
+    """K1's function on gathered coordinate blocks: g int32 [T, 3*NL, P]
+    (gather_cols) -> int32 [4, NL, P], lane p = sum_t of round t's column
+    p, the mixed adds in round order.
+
+    Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel.
+    Bound on the H100: the larger of the integer multiplies (7 field muls
+    of 100 32x32->64 products per live entry) and 120 B of gathered
+    coordinates per slot read once, two costs of one size.  Design: one
+    thread per lane, the accumulator in registers for all T rounds; limb l
+    of round t is g[t, l, p], so the 30 loads of a round are each
+    coalesced across the warp (no row gather in the kernel: the gather
+    pass before it pays for the random access)."""
+    native.check(g, "g", (None, 3 * NL, None))
+    lib = native.kernels_for(g)
+    if lib is None:
+        return bucket_accumulate_cols_plain(g)
+    t, _, p = g.shape
+    out = torch.empty((4, NL, p), dtype=torch.int32, device=g.device)
+    if p == 0:
+        return out
+    native.launched("bucket_accumulate_cols", lib.bpg_bucket_accumulate_cols(
+        g.data_ptr(), t, p, out.data_ptr(), native.stream(g)))
+    return out
+
+
+def bucket_accumulate_cols_plain(g):
+    return _madd_rounds(curve.identity((g.shape[2],), g.device), g.unbind(0))
+
+
+def bucket_accumulate_cols_cont(g, acc):
+    """K8 started from a pool: g int32 [T, 3*NL, P]; acc int32 [4, NL, P]
+    -> int32 [4, NL, P], lane p = acc_p + sum_t of round t's column p (so
+    K8 over rounds [0, t0) and K9 over [t0, T) give K8's limbs over
+    [0, T)).
+
+    Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel_cont.
+    Bound on the H100: K8's, plus the pool read and written once (2 x 160
+    B per lane).  Design: K8's body with the accumulator loaded from acc;
+    its own C entry and launch counter."""
+    native.check(g, "g", (None, 3 * NL, None))
+    native.check(acc, "acc", (4, NL, g.shape[2]))
+    lib = native.kernels_for(g, acc)
+    if lib is None:
+        return bucket_accumulate_cols_cont_plain(g, acc)
+    t, _, p = g.shape
+    out = torch.empty_like(acc)
+    if p == 0:
+        return out
+    native.launched("bucket_accumulate_cols_cont",
+                    lib.bpg_bucket_accumulate_cols_cont(
+                        g.data_ptr(), t, p, acc.data_ptr(), out.data_ptr(),
+                        native.stream(g)))
+    return out
+
+
+def bucket_accumulate_cols_cont_plain(g, acc):
+    return _madd_rounds(curve.unstack(acc), g.unbind(0))
+
+
+def bucket_accumulate_flat(g, t: int, p: int):
+    """K1's function on one flat gather: g int32 [3*NL, t*p] (gather_flat)
+    -> int32 [4, NL, p], lane j = sum over rounds r of column r*p + j.
+
+    Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel2d
+    (one round per grid step).  Bound on the H100: K8's (7 field muls per
+    live entry, 120 B per slot read once).  Design: K8's body with round
+    stride p and limb stride t*p (int64 offsets: the flat gather of a
+    large MSM passes 2^31 elements), so every load is still coalesced
+    across the warp; one launch runs all t rounds."""
+    if t < 0 or p < 0:
+        raise ValueError(f"rounds {t} / lanes {p}: must not be negative")
+    native.check(g, "g", (3 * NL, t * p))
+    lib = native.kernels_for(g)
+    if lib is None:
+        return bucket_accumulate_flat_plain(g, t, p)
+    out = torch.empty((4, NL, p), dtype=torch.int32, device=g.device)
+    if p == 0:
+        return out
+    native.launched("bucket_accumulate_flat", lib.bpg_bucket_accumulate_flat(
+        g.data_ptr(), t, p, out.data_ptr(), native.stream(g)))
+    return out
+
+
+def bucket_accumulate_flat_plain(g, t: int, p: int):
+    return _madd_rounds(curve.identity((p,), g.device),
+                        (g[:, r * p:(r + 1) * p] for r in range(t)))
 
 
 # ---------------------------------------------------------------------------
@@ -394,18 +534,30 @@ def plan(digits_t, n: int, lo: int = 0):
     return idx_rows(s, 0, s.t), s.offs, s.sub
 
 
-def accumulate(src, s: Schedule, slot_budget: int):
-    """The pool int32 [4, NL, P] of one schedule: one K1 over all T rounds,
-    or, when T*P passes slot_budget (0: never), K1 over the first
-    max(1, slot_budget // P) rounds and K2 over each later chunk of as
-    many."""
+def accumulate(src, s: Schedule, slot_budget: int, layout: str = "rows"):
+    """The pool int32 [4, NL, P] of one schedule in the given layout.
+    rows: one K1 over all T rounds, or, when T*P passes slot_budget (0:
+    never), K1 over the first max(1, slot_budget // P) rounds and K2 over
+    each later chunk of as many.  cols: the same round chunks, each
+    gathered (gather_cols) for K8, then K9.  flat: one gather_flat and one
+    K10 over all T rounds, whatever the budget."""
+    if layout == "flat":
+        return bucket_accumulate_flat(gather_flat(src, idx_rows(s, 0, s.t)),
+                                      s.t, s.pool)
     tc = s.t
     if slot_budget and s.t * s.pool > slot_budget:
         tc = max(1, slot_budget // s.pool)
-    pool = bucket_accumulate(src, idx_rows(s, 0, tc))
-    for t0 in range(tc, s.t, tc):
-        pool = bucket_accumulate_cont(src, idx_rows(s, t0, min(t0 + tc, s.t)),
-                                      pool)
+    if layout == "rows":
+        first, cont = bucket_accumulate, bucket_accumulate_cont
+    else:
+        first, cont = bucket_accumulate_cols, bucket_accumulate_cols_cont
+
+    def chunk(t0):      # the kernel's inputs for rounds t0 .. t0 + tc - 1
+        idx = idx_rows(s, t0, min(t0 + tc, s.t))
+        return (src, idx) if layout == "rows" else (gather_cols(src, idx),)
+    pool = first(*chunk(0))
+    for t0 in range(tc, s.t, tc):   # one chunk's inputs exist at a time
+        pool = cont(*chunk(t0), pool)
     return pool
 
 
@@ -458,14 +610,17 @@ def points_from_cols(cols):
 
 
 def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
-                 slot_budget: int = None):
+                 slot_budget: int = None, layout: str = "rows"):
     """digits_t int8 [k*W, n] on src's device over the rows src -> int32
     [4, NL, k] extended points (no readback but the schedule's counts, one
     per chunk).  More than max_stack_k() vectors split into launches of at
     most that many.  Sources of more than `point_chunk` (default
     POINT_CHUNK) points run in chunks whose window sums K7 adds before
     Horner; a chunk of more than `slot_budget` (default SLOT_BUDGET; 0:
-    no limit) T*P slots runs its rounds in chunks (K1, then K2)."""
+    no limit) T*P slots runs its rounds in chunks (K1, then K2; K8, then
+    K9 under the cols layout).  `layout` is one of LAYOUTS (`accumulate`);
+    every layout gives the same limbs."""
+    check_layout(layout)
     k = digits_t.shape[0] // W
     if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
             or digits_t.device != src.device):
@@ -475,38 +630,39 @@ def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
     k_max = max_stack_k()
     if k > k_max:
         return torch.cat([msm_digits_t(digits_t[v * W:(v + k_max) * W], src,
-                                       n, point_chunk, slot_budget)
+                                       n, point_chunk, slot_budget, layout)
                           for v in range(0, k, k_max)], dim=2)
     chunk = point_chunk or POINT_CHUNK
     budget = SLOT_BUDGET if slot_budget is None else slot_budget
     ws = None
     for lo in range(0, max(n, 1), chunk):
         s = schedule(digits_t[:, lo:lo + chunk], n, lo)
-        part = window_sums(bucket_merge(accumulate(src, s, budget), s.offs,
-                                        s.sub))
+        part = window_sums(bucket_merge(accumulate(src, s, budget, layout),
+                                        s.offs, s.sub))
         ws = part if ws is None else point_add(ws, part)
     return horner(ws, k)
 
 
-def msm_many_digits_t(digits_t: np.ndarray, src, n: int):
+def msm_many_digits_t(digits_t: np.ndarray, src, n: int,
+                      layout: str = "rows"):
     """digits_t int8 [k*W, n] (host) over the device rows src -> k points."""
     return points_from_cols(msm_digits_t(
-        torch.from_numpy(digits_t).to(src.device), src, n))
+        torch.from_numpy(digits_t).to(src.device), src, n, layout=layout))
 
 
-def msm_many(vectors, src, n: int):
+def msm_many(vectors, src, n: int, layout: str = "rows"):
     """vectors: k lists of n ints (any residue mod L) -> k points."""
     digits = np.concatenate([signed_digits([v % L for v in vec], C)
                              for vec in vectors], axis=1)      # [n, k*W]
     return msm_many_digits_t(
-        np.ascontiguousarray(digits.T, dtype=np.int8), src, n)
+        np.ascontiguousarray(digits.T, dtype=np.int8), src, n, layout)
 
 
-def msm(scalars, points, device) -> RistrettoPoint:
+def msm(scalars, points, device, layout: str = "rows") -> RistrettoPoint:
     """One MSM over an arbitrary point list (the verifier's dynamic part
     when it is large enough): preps a source per call."""
     src = torch.from_numpy(prep_source(list(points))).to(device)
-    return msm_many([[int(s) for s in scalars]], src, len(points))[0]
+    return msm_many([[int(s) for s in scalars]], src, len(points), layout)[0]
 
 
 class GeneratorTable:
@@ -514,18 +670,21 @@ class GeneratorTable:
     B_blinding]: the source rows upload once per proof size; every prover
     and verifier MSM against it is one launch chain from device digits
     (`msm_digits`, `supports_digits`), and the device IPA (ops/ipa_fused)
-    runs `msm_digits_t` on `src` directly.  On-device point encoding
-    (`msm_enc`) comes with the device Ristretto slice."""
+    runs `msm_digits_t` on `src` directly, each in the table's `layout`
+    (LAYOUTS).  On-device point encoding (`msm_enc`) comes with the device
+    Ristretto slice."""
 
-    __slots__ = ("N", "m", "src")
+    __slots__ = ("N", "m", "src", "layout")
     supports_digits = True
 
-    def __init__(self, G, H, B, B_blinding, device):
+    def __init__(self, G, H, B, B_blinding, device, layout: str = "rows"):
         assert len(H) == len(G)
+        check_layout(layout)
         self.N = len(G)
         self.m = 2 * self.N + 2
         self.src = torch.from_numpy(
             prep_source(list(G) + list(H) + [B, B_blinding])).to(device)
+        self.layout = layout
 
     @classmethod
     def from_rows(cls, rows: np.ndarray, device) -> "GeneratorTable":
@@ -534,8 +693,10 @@ class GeneratorTable:
         t.m = (rows.shape[0] - 1) // 2
         t.N = (t.m - 2) // 2
         t.src = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+        t.layout = "rows"
         return t
 
     def msm_digits(self, digits_t):
         """Device digits int8 [k*W, m] (ops/flvec) -> k host points."""
-        return points_from_cols(msm_digits_t(digits_t, self.src, self.m))
+        return points_from_cols(msm_digits_t(digits_t, self.src, self.m,
+                                             layout=self.layout))

@@ -42,12 +42,28 @@ Phases (one line each; any failure raises and exits non-zero):
      round-chunked against one unchunked K1 on the same digits (kernels
      alone, and the whole MSM with its peak memory);
   8. warm ms per witness of a batch of 8 64-bit BOUND witnesses against 8
-     sequential proves.
+     sequential proves;
+  9. the pre-transposed layouts of the bucket accumulation (cols: the
+     gather_cols pass, then K8, and K9 past the slot budget; flat: the
+     gather_flat pass, then K10): (a) K8 and K10 against their plain
+     versions and K1's pool on the example's k=3 commitment launch, K9
+     against its plain version and K2 on the merkle32 x 3 round chunk
+     (tolerance 0); (b) on the example's k=3 launch, merkle32's k=3
+     commitment chunk (2^17 points) and that round chunk, K1 (K2) against
+     gather + K8 (K9) and gather + K10, each with its gather's time and its
+     peak memory above the inputs, then the whole msm_digits_t of the three
+     MSMs under each layout; (c) the main path under
+     engine.register("cuda", msm_layout=...) for cols and for flat: the four
+     pinned statements (first and warm, verify true, tampered false) and
+     merkle32 x 3 stacked byte-equal to the rows batch of phase 6 and
+     verifying, with the launch counters reset before each layout's run and
+     read after it (cols must launch K8 and K9 and no K1/K2; flat K10 and
+     no K1/K2/K8/K9).
 Then the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the larger of its products over the card's
 int32 multiply rate and its bytes over the memory rate; launches are the
-single-proof path's and the batch path's together), and the last line
-{"ok": true, "device": {...}}.
+single-proof path's, the batch path's and the two layout runs' together),
+and the last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -73,7 +89,19 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "ladder_fold": ("bulletproof_gadgets_tpu_torch/csrc/ipa_fold.cu",
                     "bulletproof_gadgets_tpu/ops/ipa_fold.py:170"),
     "point_add": (MSM_CU, "bulletproof_gadgets_tpu/ops/pallas_curve.py:178"),
+    "bucket_accumulate_cols": (
+        MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:801"),
+    "bucket_accumulate_cols_cont": (
+        MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:828"),
+    "bucket_accumulate_flat": (
+        MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:901"),
 }
+# the bucket-accumulation kernels of each layout (ops/msm_serial.LAYOUTS)
+LAYOUT_KERNELS = {
+    "rows": ("bucket_accumulate", "bucket_accumulate_cont"),
+    "cols": ("bucket_accumulate_cols", "bucket_accumulate_cols_cont"),
+    "flat": ("bucket_accumulate_flat",)}
+OTHER_LAYOUTS = LAYOUT_KERNELS["cols"] + LAYOUT_KERNELS["flat"]
 # device IPA runs [n, folds] per prove of a statement on a device table
 IPA_RUNS = {"bound16": [], "less_than": [[512, 0]], "example": [[16384, 1]],
             "merkle32": [[65536, 1]]}
@@ -213,11 +241,9 @@ def batch_path(pins, ms):
     just after.  Returns (launches, the first K2 call's inputs on
     merkle32, merkle32's stacked commitment digits (digits, src, n))."""
     from bulletproof_gadgets_tpu_torch.core import msm as core_msm
-    from bulletproof_gadgets_tpu_torch.lang.batch import (prove_batch,
-                                                         verify_batch)
-    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+    from bulletproof_gadgets_tpu_torch.lang.batch import verify_batch
     from bulletproof_gadgets_tpu_torch.ops import mimc_kernels
-    conts, stacked, hashed = [], [], []
+    conts, stacked, hashed, outs = [], [], [], {}
     cont, msm_digits_t = ms.bucket_accumulate_cont, ms.msm_digits_t
     hash_batch = mimc_kernels.mimc_hash_batch
 
@@ -249,14 +275,7 @@ def batch_path(pins, ms):
         return msm_digits_t(digits, src, n, *a, **kw)
 
     def run(name, st, witnesses, **kw):
-        blind_rng.set_seed(pins["seed"])
-        try:
-            t0 = time.time()
-            out = prove_batch(name, st["instance"], witnesses, st["gadgets"],
-                              **kw)
-            return out, time.time() - t0
-        finally:
-            blind_rng.set_seed(None)
+        return seeded_batch(pins, name, st, witnesses, **kw)
 
     def sha(b):
         return hashlib.sha256(b).hexdigest()
@@ -297,6 +316,7 @@ def batch_path(pins, ms):
                                      "batches differ")
             if len({p for p, _, _ in stacked_out}) != 3:
                 raise AssertionError(f"{name} x 3: proofs not distinct")
+            outs[name] = stacked_out
             proofs = [(p, c) for p, _, c in stacked_out]
             bad = bytearray(proofs[0][0])
             bad[len(bad) // 2] ^= 1
@@ -319,12 +339,27 @@ def batch_path(pins, ms):
     finally:
         ms.bucket_accumulate_cont, ms.msm_digits_t = cont, msm_digits_t
         mimc_kernels.mimc_hash_batch = hash_batch
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k, v in launches.items()
+            if v == 0 and k not in OTHER_LAYOUTS]
     if idle:
         raise AssertionError(f"kernels not launched by the batch path: "
                              f"{idle}")
     say(f"batch path launches: {launches}")
-    return launches, conts[0], stacked[0]
+    return launches, conts[0], stacked[0], outs
+
+
+def seeded_batch(pins, name, st, witnesses, **kw):
+    """prove_batch under the pinned blinding seed -> (results, s)."""
+    from bulletproof_gadgets_tpu_torch.lang.batch import prove_batch
+    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+    blind_rng.set_seed(pins["seed"])
+    try:
+        t0 = time.time()
+        out = prove_batch(name, st["instance"], witnesses, st["gadgets"],
+                          **kw)
+        return out, time.time() - t0
+    finally:
+        blind_rng.set_seed(None)
 
 
 def check_cont(ms, src, idx, acc):
@@ -421,6 +456,190 @@ def bound64_per_witness(device):
         "verify)")
 
 
+def check_layout_kernels(ms, ex_call, k2_in):
+    """Phase 9 (a): K8 and K10 against their plain versions on the
+    example's k=3 commitment launch, K9 on the merkle32 x 3 round chunk
+    (tolerance 0; 7 field muls per live entry, the bytes of the gathered
+    coordinates, the pool written and, for K9, read), and their pools
+    against K1's / K2's on the same idx."""
+    import torch
+    digits, src, n = ex_call
+    idx, _, _ = ms.plan(digits, n)
+    t, p = idx.shape
+    muls = int((idx != 2 * n).sum()) * MULS["madd"]
+    pool = ms.bucket_accumulate(src, idx)
+    label, shape = "example k=3 commitment launch", f"T={t} P={p}"
+    res = {}
+    g = ms.gather_cols(src, idx)
+    res["bucket_accumulate_cols"] = compare(
+        "bucket_accumulate_cols", label, lambda: ms.bucket_accumulate_cols(g),
+        lambda: ms.bucket_accumulate_cols_plain(g), shape, muls, (g,))
+    same = torch.equal(ms.bucket_accumulate_cols(g), pool)
+    g = ms.gather_flat(src, idx)
+    res["bucket_accumulate_flat"] = compare(
+        "bucket_accumulate_flat", label,
+        lambda: ms.bucket_accumulate_flat(g, t, p),
+        lambda: ms.bucket_accumulate_flat_plain(g, t, p), shape, muls, (g,))
+    same &= torch.equal(ms.bucket_accumulate_flat(g, t, p), pool)
+    src, idx, acc = k2_in
+    g = ms.gather_cols(src, idx)
+    res["bucket_accumulate_cols_cont"] = compare(
+        "bucket_accumulate_cols_cont", "merkle32 x 3 round chunk",
+        lambda: ms.bucket_accumulate_cols_cont(g, acc),
+        lambda: ms.bucket_accumulate_cols_cont_plain(g, acc),
+        f"T={idx.shape[0]} P={idx.shape[1]}",
+        int((idx != src.shape[0] - 1).sum()) * MULS["madd"], (g, acc))
+    same &= torch.equal(ms.bucket_accumulate_cols_cont(g, acc),
+                        ms.bucket_accumulate_cont(src, idx, acc))
+    if not same:
+        raise AssertionError("K8 / K10 pool != K1's or K9 pool != K2's on "
+                             "the same idx")
+    say("K8 and K10 pools equal K1's on the example launch; K9's equals "
+        "K2's on the round chunk")
+    return res
+
+
+def layout_times(ms, label, src, idx, acc=None):
+    """Phase 9 (b) on one accumulation's idx (with acc: a round chunk that
+    carries its pool): K1 (K2) against gather_cols + K8 (K9) and
+    gather_flat + K10 (from the identity, the same rounds), CUDA events,
+    mean of 5 after a warm-up; each gather alone; the peak device memory of
+    each accumulation above its inputs."""
+    import torch
+    t, p = idx.shape
+
+    def measure(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_ms, _ = timed(fn, 5)
+        return t_ms, (torch.cuda.max_memory_allocated() - base) / 2**20
+    if acc is None:
+        rows = measure(lambda: ms.bucket_accumulate(src, idx))
+        cols = measure(lambda: ms.bucket_accumulate_cols(
+            ms.gather_cols(src, idx)))
+    else:
+        rows = measure(lambda: ms.bucket_accumulate_cont(src, idx, acc))
+        cols = measure(lambda: ms.bucket_accumulate_cols_cont(
+            ms.gather_cols(src, idx), acc))
+    flat = measure(lambda: ms.bucket_accumulate_flat(
+        ms.gather_flat(src, idx), t, p))
+    g_cols = timed(lambda: ms.gather_cols(src, idx), 5)[0]
+    g_flat = timed(lambda: ms.gather_flat(src, idx), 5)[0]
+    k1, k8 = ("K2", "K9") if acc is not None else ("K1", "K8")
+    say(f"layouts on {label} (T={t} P={p}, {t * p} slots): rows {k1} "
+        f"{rows[0]:.3f} ms (peak {rows[1]:.1f} MiB); cols gather "
+        f"{g_cols:.3f} ms, gather + {k8} {cols[0]:.3f} ms (peak "
+        f"{cols[1]:.1f} MiB); flat gather {g_flat:.3f} ms, gather + K10 "
+        f"{flat[0]:.3f} ms (peak {flat[1]:.1f} MiB)")
+
+
+def layout_msm_times(ms, label, digits, src, n):
+    """Phase 9 (b): one whole msm_digits_t under each layout (CUDA events,
+    mean of 5 after a warm-up; peak device memory above its inputs); the
+    three must give equal limbs."""
+    import torch
+    parts, ref = [], None
+    for layout in ms.LAYOUTS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_m, out = timed(lambda: ms.msm_digits_t(digits, src, n,
+                                                 layout=layout), 5)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        if ref is None:
+            ref = out
+        elif not torch.equal(out, ref):
+            raise AssertionError(f"msm_digits_t on {label}: {layout} != rows")
+        parts.append(f"{layout} {t_m:.3f} ms (peak {peak:.1f} MiB)")
+    say(f"msm_digits_t on {label} ({n} points, k={digits.shape[0] // ms.W}): "
+        + ", ".join(parts) + "; equal limbs")
+
+
+def layout_path(pins, ms, engine, layout, rows_batch):
+    """Phase 9 (c): the four pinned statements (first and warm) and
+    merkle32 x 3 stacked under engine.register("cuda", msm_layout=layout),
+    the launch counters reset just before and read just after; the
+    layout's kernels must launch and no other layout's.  Returns the
+    launches."""
+    from bulletproof_gadgets_tpu_torch.lang.batch import verify_batch
+    from bulletproof_gadgets_tpu_torch.lang.prove import prove
+    from bulletproof_gadgets_tpu_torch.lang.verify import verify
+    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    def since(before):                # this layout's launches since before
+        return {k: ms.LAUNCHES[k] - before[k] for k in LAYOUT_KERNELS[layout]}
+    engine.register("cuda", msm_layout=layout)
+    for name in ms.LAUNCHES:
+        ms.LAUNCHES[name] = 0
+    try:
+        for name in ("bound16", "less_than", "example", "merkle32"):
+            st = pins["statements"][name]
+            times = []
+            for _ in range(2):                   # first, then warm
+                before = dict(ms.LAUNCHES)
+                blind_rng.set_seed(pins["seed"])
+                coms = []
+                try:
+                    t0 = time.time()
+                    proof, _ = prove(name, st["instance"], st["witness"],
+                                     st["gadgets"], coms)
+                    t_prove = time.time() - t0
+                finally:
+                    blind_rng.set_seed(None)
+                coms = "".join(coms)
+                if (sha(proof) != st["proof_sha256"]
+                        or sha(coms.encode()) != st["coms_sha256"]):
+                    raise AssertionError(f"{layout}: {name}: proof or .coms "
+                                         "differ from the JAX package's pin")
+                t0 = time.time()
+                if not verify(name, st["instance"], proof, coms,
+                              st["gadgets"]):
+                    raise AssertionError(f"{layout}: {name}: verify false")
+                times.append((t_prove, time.time() - t0))
+            warm = since(before)                 # the warm prove + verify
+            bad = bytearray(proof)
+            bad[len(bad) // 2] ^= 1
+            if verify(name, st["instance"], bytes(bad), coms, st["gadgets"]):
+                raise AssertionError(f"{layout}: {name}: tampered proof "
+                                     "verified")
+            say(f"layout {layout}: statement {name}: proof and .coms equal "
+                f"the pins, verify true, tampered false; prove first "
+                f"{times[0][0]:.2f} s warm {times[1][0]:.2f} s, verify first "
+                f"{times[0][1]:.2f} s warm {times[1][1]:.2f} s; launches "
+                f"per prove + verify {warm}")
+        st = pins["statements"]["merkle32"]
+        before = dict(ms.LAUNCHES)
+        out, t_b = seeded_batch(pins, "merkle32", st, [st["witness"]] * 3)
+        batch = since(before)
+        if out != rows_batch:
+            raise AssertionError(f"{layout}: merkle32 x 3 differs from the "
+                                 "rows layout's batch")
+        t0 = time.time()
+        oks = verify_batch("merkle32", st["instance"],
+                           [(p, c) for p, _, c in out], st["gadgets"])
+        if oks != [True] * 3:
+            raise AssertionError(f"{layout}: merkle32 x 3 verify {oks}")
+        say(f"layout {layout}: merkle32 x 3 stacked {t_b:.2f} s, byte-equal "
+            f"to the rows batch, launches {batch}; verify_batch "
+            f"{time.time() - t0:.2f} s, 3 true")
+        launches = dict(ms.LAUNCHES)
+    finally:
+        engine.register("cuda")
+    missing = [k for k in LAYOUT_KERNELS[layout] if launches[k] == 0]
+    stray = [k for other, ks in LAYOUT_KERNELS.items() if other != layout
+             for k in ks if launches[k]]
+    if missing or stray:
+        raise AssertionError(f"layout {layout}: kernels not launched "
+                             f"{missing}, other layouts' kernels launched "
+                             f"{stray}")
+    say(f"layout {layout} launches: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -464,9 +683,9 @@ def main() -> int:
     calls, folds = [], []
     msm_digits_t, ladder_fold = ms.msm_digits_t, ipa_fold.ladder_fold
 
-    def record(digits, src, n, *a):
+    def record(digits, src, n, *a, **kw):
         calls.append((digits, src, n))
-        return msm_digits_t(digits, src, n, *a)
+        return msm_digits_t(digits, src, n, *a, **kw)
 
     def record_fold(src, base, dig):
         folds.append((src, base, dig))
@@ -495,6 +714,7 @@ def main() -> int:
     results = check_kernels(ms, *calls[0], "k=3 commitment launch")
     check_kernels(ms, *calls[-1], "k=1 verifier launch")
     results["ladder_fold"] = check_fold(ipa_fold, *folds[0])
+    ex_call = calls[0]                           # phase 9's example launch
     del calls[:], folds[:]
 
     # 3. whole MSMs against the host Pippenger
@@ -531,11 +751,11 @@ def main() -> int:
         ipa_runs[-1][1] += 1
         return materialize(*a)
 
-    def record_chunks(digits, src, n, *a):
+    def record_chunks(digits, src, n, *a, **kw):
         chunked[0] += n > ms.POINT_CHUNK
         if not calls and n > ms.POINT_CHUNK:
             calls.append((digits, src, n))       # the commitment MSM
-        return msm_digits_t(digits, src, n, *a)
+        return msm_digits_t(digits, src, n, *a, **kw)
 
     def record_add(p, q):
         if not combines:
@@ -613,7 +833,8 @@ def main() -> int:
         raise AssertionError(f"merkle32: {chunked[0]} chunked MSMs, "
                              f"{launches['point_add']} K7 launches")
     idle = [k for k, v in launches.items()
-            if v == 0 and k != "bucket_accumulate_cont"]
+            if v == 0 and k != "bucket_accumulate_cont"
+            and k not in OTHER_LAYOUTS]
     if idle:
         raise AssertionError(f"kernels not launched by the main path: {idle}")
     say(f"main path launches: {launches}")
@@ -635,17 +856,35 @@ def main() -> int:
             f"entries, {total:.3f} ms, {ns:.3f} ns per entry")
 
     # 6. the batch path; 7. K2 and the round chunks; 8. ms per witness
-    batch_launches, k2_in, stacked = batch_path(pins, ms)
+    batch_launches, k2_in, stacked, rows_batch = batch_path(pins, ms)
     results["bucket_accumulate_cont"] = check_cont(ms, *k2_in)
     round_chunk_times(ms, *stacked)
     bound64_per_witness(device)
+
+    # 9. the pre-transposed layouts: kernels, layout times, the main path
+    results.update(check_layout_kernels(ms, ex_call, k2_in))
+    for label, l_src, l_idx, l_acc in (
+            ("the example's k=3 launch", ex_call[1],
+             ms.plan(ex_call[0], ex_call[2])[0], None),
+            ("merkle32's k=3 commitment chunk (2^17 points)", m_src,
+             ms.plan(m_digits[:, :ms.POINT_CHUNK], m_n, 0)[0], None),
+            ("the merkle32 x 3 round chunk", *k2_in)):
+        layout_times(ms, label, l_src, l_idx, l_acc)
+    for label, call in (("the example's k=3 launch", ex_call),
+                        ("merkle32's k=3 commitments", (m_digits, m_src, m_n)),
+                        ("merkle32 x 3's stacked commitments", stacked)):
+        layout_msm_times(ms, label, *call)
+    layout_launches = [layout_path(pins, ms, engine, layout,
+                                   rows_batch["merkle32"])
+                       for layout in ("cols", "flat")]
 
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src_file,
          "replaces": replaces,
-         "launches": launches[name] + batch_launches[name],
+         "launches": launches[name] + batch_launches[name]
+         + sum(run[name] for run in layout_launches),
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}

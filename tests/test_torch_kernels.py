@@ -7,8 +7,9 @@ the `cuda` fixture, not at import).  The card runs them with
 
 (`--noconftest`: the suite's conftest imports JAX, which the GPU machine
 does not need).  chip_smoke.py runs the same comparisons at the example
-statement's full shapes (K7 on merkle32's chunk window sums, K2 on a round
-chunk of merkle32's batched commitments).
+statement's full shapes (K7 on merkle32's chunk window sums, K2 and K9 on
+a round chunk of merkle32's batched commitments, K8 and K10 on the
+example's commitment launch).
 """
 import random
 
@@ -55,14 +56,22 @@ def stage_inputs(cuda):
     ws = ms.window_sums(buckets)
     # K2's inputs: the rounds after the first two, the pool of the first two
     head = ms.bucket_accumulate(src, idx[:2].contiguous())
+    # K8-K10's: the same rounds gathered in the cols and flat layouts
+    g_cols = ms.gather_cols(src, idx)
     return dict(src=src, idx=idx, offs=offs, sub=sub, pool=pool,
                 buckets=buckets, ws=ws, k=len(vecs), pts=pts, vecs=vecs,
-                idx_tail=idx[2:].contiguous(), head=head)
+                idx_tail=idx[2:].contiguous(), head=head, g_cols=g_cols,
+                g_tail=g_cols[2:].contiguous(),
+                g_flat=ms.gather_flat(src, idx), t=idx.shape[0],
+                p=idx.shape[1])
 
 
 STAGES = {
     "bucket_accumulate": ("src", "idx"),
     "bucket_accumulate_cont": ("src", "idx_tail", "head"),
+    "bucket_accumulate_cols": ("g_cols",),
+    "bucket_accumulate_cols_cont": ("g_tail", "head"),
+    "bucket_accumulate_flat": ("g_flat", "t", "p"),
     "bucket_merge": ("pool", "offs", "sub"),
     "window_sums": ("buckets",),
     "horner": ("ws", "k"),
@@ -79,7 +88,7 @@ def test_kernel_equals_plain(stage, stage_inputs):
     want = getattr(ms, stage + "_plain")(*args)
     assert got.is_cuda and got.dtype == torch.int32
     assert torch.equal(got, want)          # same limbs, tolerance 0
-    if stage == "bucket_accumulate_cont":  # K1 then K2 = K1 over all rounds
+    if stage.startswith("bucket_accumulate_"):  # K2, K8-K10: K1's pool
         assert torch.equal(got, stage_inputs["pool"])
 
 
@@ -159,6 +168,33 @@ def test_round_chunked_msm_equals_host(stage_inputs):
     torch.cuda.synchronize()
     assert ms.LAUNCHES["bucket_accumulate_cont"] == \
         before + stage_inputs["idx"].shape[0] - 1
+    want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
+    assert [g.compress() for g in ms.points_from_cols(cols)] == \
+        [w.compress() for w in want]
+
+
+@pytest.mark.parametrize("layout", ["cols", "flat"])
+def test_msm_under_layout_equals_host(stage_inputs, layout):
+    """The k=3 MSM under each layout, in point chunks of 512 and with the
+    slot budget at 1 (cols: K8 on each chunk's first round, K9 on each
+    later one; flat: one K10 per chunk), equals the host MSM and launches
+    no K1/K2."""
+    src, vecs = stage_inputs["src"], stage_inputs["vecs"]
+    digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
+    d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
+    before = dict(ms.LAUNCHES)
+    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
+                           point_chunk=512, slot_budget=1, layout=layout)
+    torch.cuda.synchronize()
+    ran = {k: ms.LAUNCHES[k] - before[k] for k in before
+           if ms.LAUNCHES[k] != before[k]}
+    chunks = -(-len(stage_inputs["pts"]) // 512)
+    if layout == "flat":
+        assert ran["bucket_accumulate_flat"] == chunks
+    else:
+        assert ran["bucket_accumulate_cols"] == chunks
+        assert ran["bucket_accumulate_cols_cont"] >= 3 * chunks
+    assert not {"bucket_accumulate", "bucket_accumulate_cont"} & set(ran)
     want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]
