@@ -115,35 +115,253 @@ bucket_merge_kernel(const int32_t* __restrict__ pool, int P,
   ge_store(out, M, b, acc);
 }
 
-// K4: window w = sum_j (j + 1) * S[w * nb + j] by the running sum.
-__global__ void __launch_bounds__(kThreads)
-window_sums_kernel(const int32_t* __restrict__ buckets, int nw, int nb,
-                   int32_t* __restrict__ out) {
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= nw) return;
-  const int64_t m = (int64_t)nw * nb;
-  ge running = ge_identity();
-  ge total = ge_identity();
-  for (int j = nb - 1; j >= 0; j--) {
-    running = ge_add(running, ge_load(buckets, m, w * nb + j));
-    total = ge_add(total, running);
+// K4: window sums, replacing
+// bulletproof_gadgets_tpu/ops/msm_serial.py:_window_scan_kernel (a double
+// Hillis-Steele suffix scan over each window's buckets, 2 x 7 steps of
+// unified adds).  Window w = sum_j (j + 1) * S_j over its NB = 128 buckets.
+// Bound on the H100: the dependent chain of point operations per window
+// (not bytes: 20 KB of buckets per window).  The running sum (run += S_j,
+// total += run) is 256 dependent adds by one thread, ~5.4 us each on the
+// H100, and the 32-288 windows of a launch leave most SMs idle.  Design: one
+// warp per window, two per block (the example's k=3 launch, 96 windows, on
+// 48 SMs); lane s owns buckets 4s .. 4s+3, which the [4, NL, nw*NB] layout
+// holds as one int4 per limb row, so the warp stages its window's 20 KB in
+// shared memory by 40 coalesced 512-byte loads.  Then
+//   1. lane s forms U_s = S_4s + .. + S_4s+3 and T_s = sum_i (i+1) S_4s+i by
+//      the running sum over its four buckets, top down (6 adds);
+//   2. a suffix scan by shuffles turns U_s into V_s = U_s + .. + U_31
+//      (5 steps: V_s += V_s+d for d = 1, 2, 4, 8, 16 while s + d < 32);
+//   3. lane s >= 1 forms Q_s = T_s + 4 V_s (2 doublings, 1 add; Q_0 = T_0);
+//   4. a tree reduction by shuffles sums the Q_s into lane 0 (5 steps:
+//      Q_s += Q_s+d for d = 16, 8, 4, 2, 1 while s < d),
+// since sum_j (j+1) S_j = sum_s T_s + 4 sum_s s U_s and sum_s s U_s =
+// sum_{s>=1} V_s.  The longest chain is 6 + 5 + 3 + 5 = 19 point operations
+// per window (from 256).  This order of adds is the kernel's specification:
+// ops/msm_serial.window_sums_plain performs the same adds in the same
+// order, so the two agree limb for limb.
+constexpr int kNB = 128;
+constexpr int kWinPerBlock = 2;
+
+__device__ __forceinline__ ge ge_shfl_down(const ge& p, int d) {
+  ge r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    r.X.v[i] = __shfl_down_sync(0xffffffffu, p.X.v[i], d);
+    r.Y.v[i] = __shfl_down_sync(0xffffffffu, p.Y.v[i], d);
+    r.Z.v[i] = __shfl_down_sync(0xffffffffu, p.Z.v[i], d);
+    r.T.v[i] = __shfl_down_sync(0xffffffffu, p.T.v[i], d);
   }
-  ge_store(out, nw, w, total);
+  return r;
 }
 
-// K5: vector v = sum_w 2^(c*w) * ws[v * nwin + w], windows high to low.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWinPerBlock)
+window_sums_kernel(const int32_t* __restrict__ buckets, int nw,
+                   int32_t* __restrict__ out) {
+  // stage[warp][r][i][s]: limb row r (coordinate r / 10, limb r % 10) of
+  // bucket 4s + i, so the 32 lanes read a bucket's row without conflicts
+  __shared__ int32_t stage[kWinPerBlock][40][4][32];
+  const int lane = threadIdx.x & 31;
+  const int64_t w = (int64_t)blockIdx.x * kWinPerBlock + (threadIdx.x >> 5);
+  if (w >= nw) return;                         // the whole warp
+  int32_t(*s)[4][32] = stage[threadIdx.x >> 5];
+  const int64_t m = (int64_t)nw * kNB;
+  const int32_t* row = buckets + w * kNB + 4 * lane;
+#pragma unroll 8
+  for (int r = 0; r < 40; r++) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(row + r * m));
+    s[r][0][lane] = v.x;
+    s[r][1][lane] = v.y;
+    s[r][2][lane] = v.z;
+    s[r][3][lane] = v.w;
+  }
+  // each lane reads back only what it wrote itself: no barrier
+  auto bucket = [&](int i) {
+    ge p;
+#pragma unroll
+    for (int l = 0; l < 10; l++) {
+      p.X.v[l] = s[l][i][lane];
+      p.Y.v[l] = s[10 + l][i][lane];
+      p.Z.v[l] = s[20 + l][i][lane];
+      p.T.v[l] = s[30 + l][i][lane];
+    }
+    return p;
+  };
+  ge run = bucket(3), tot = run;               // 1. U_s and T_s
+#pragma unroll 1
+  for (int i = 2; i >= 0; i--) {
+    run = ge_add(run, bucket(i));
+    tot = ge_add(tot, run);
+  }
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {           // 2. V_s
+    const ge o = ge_shfl_down(run, d);
+    if (lane + d < 32) run = ge_add(run, o);
+  }
+  if (lane > 0) {                              // 3. Q_s
+#pragma unroll 1
+    for (int i = 0; i < 2; i++) run = ge_dbl(run);
+    tot = ge_add(tot, run);
+  }
+#pragma unroll 1
+  for (int d = 16; d > 0; d >>= 1) {           // 4. sum_s Q_s
+    const ge o = ge_shfl_down(tot, d);
+    if (lane < d) tot = ge_add(tot, o);
+  }
+  if (lane == 0) ge_store(out, nw, w, tot);
+}
+
+// K5: Horner across windows, replacing
+// bulletproof_gadgets_tpu/ops/msm_serial.py:_horner_kernel.  Vector v =
+// sum_w 2^(c*w) * ws[v * nwin + w], windows high to low: (nwin - 1) *
+// (c + 1) = 279 dependent point operations per vector (248 doublings, 31
+// adds), k = 1-11 vectors a launch.  Bound on the H100: that chain's
+// latency (the doublings cannot be fewer), ~3 us per operation when one
+// thread runs it.  Design: one warp per vector (one per block, so each
+// vector has an SM to itself), the accumulator and the vector's window
+// sums in shared memory, and each point operation as levels of
+// independent field products spread over the warp: ge_dbl is two levels
+// of four (the four squarings, then the four products), ge_add three (four
+// products, T1 T2 * 2d, four products).  In a level, group p = lane / 8
+// forms product p: lane q of the group forms the int64 column sums
+// h_q and (q < 2) h_q+8 of fe_mul (10 products each), lane 0 of the group
+// gathers the ten by shuffles and runs fe_carry on them.  So every field
+// multiplication is spread over 8 lanes, and a level costs two columns,
+// ten shuffles, one carry chain and two warp barriers instead of up to
+// four whole fe_muls.  What remains of a level (~0.44 us on the H100) is
+// the carry chain (7 dependent 64-bit carries) and the barriers' shared-
+// memory round trips.  The column sums, the carry order and the sequence
+// of operations are those of fe_mul, ge_dbl and ge_add, so the limbs are
+// those of ops/msm_serial.horner_plain.
+constexpr int kMaxWin = 32;
+
+struct HornerScratch {
+  int32_t f[4][10];        // a level's operands
+  int32_t g[4][10];
+  int32_t r[5][10];        // its products; r[0..3] = the accumulator
+  int32_t d2[10];
+  int32_t q[kMaxWin][4][10];  // the vector's window sums
+};
+
+// column k of f * g as fe_mul forms it: h_k = d_k + 19 w_k
+__device__ __forceinline__ int64_t fe_column(const int32_t* f,
+                                             const int32_t* g, int k) {
+  int64_t d = 0, w = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const bool wrap = i > k;
+    const int j = wrap ? k - i + 10 : k - i;
+    const int32_t fi = ((i & 1) && (j & 1)) ? 2 * f[i] : f[i];
+    const int64_t p = (int64_t)fi * g[j];
+    if (wrap)
+      w += p;
+    else
+      d += p;
+  }
+  return d + 19 * w;
+}
+
+// One level of n <= 4 independent products: s.r[out + p] = s.f[p] * s.g[p]
+// (the operands written before the call; the products readable after it).
+// Lanes q >= 2 form their own column twice, so that every lane runs the
+// same straight-line code.
+__device__ __forceinline__ void warp_products(HornerScratch& s, int n,
+                                              int out) {
+  const int lane = threadIdx.x & 31, p = lane >> 3, q = lane & 7;
+  __syncwarp();
+  int64_t a = 0, b = 0;
+  if (p < n) {
+    a = fe_column(s.f[p], s.g[p], q);
+    b = fe_column(s.f[p], s.g[p], q < 2 ? q + 8 : q);
+  }
+  int64_t h[10];
+  const int g0 = lane & ~7;
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] = __shfl_sync(0xffffffffu, a, g0 + i);
+  h[8] = __shfl_sync(0xffffffffu, b, g0);
+  h[9] = __shfl_sync(0xffffffffu, b, g0 + 1);
+  if (p < n && q == 0) {
+    const fe r = fe_carry(h);
+#pragma unroll
+    for (int i = 0; i < 10; i++) s.r[out + p][i] = r.v[i];
+  }
+  __syncwarp();
+}
+
+// the accumulator s.r[0..3] doubled, as ge_dbl
+__device__ __forceinline__ void warp_dbl(HornerScratch& s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // X^2, Y^2, Z^2, (X + Y)^2
+    const int p = t / 10, i = t % 10;
+    const int32_t v = p < 3 ? s.r[p][i] : s.r[0][i] + s.r[1][i];
+    s.f[p][i] = v;
+    s.g[p][i] = v;
+  }
+  warp_products(s, 4, 0);                      // a, b, zz, xysq
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
+    const int p = t / 10, i = t % 10;
+    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[2][i];
+    const int32_t h = a + b, e = h - s.r[3][i], g = a - b, f = (zz + zz) + g;
+    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
+    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
+  }
+  warp_products(s, 4, 0);                      // X, Y, Z, T
+}
+
+// the accumulator s.r[0..3] plus window sum w, as ge_add(acc, q)
+__device__ __forceinline__ void warp_add(HornerScratch& s, int w) {
+  const int lane = threadIdx.x & 31;
+  const int32_t(*q)[10] = s.q[w];
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {
+    const int p = t / 10, i = t % 10;
+    const int32_t x1 = s.r[0][i], y1 = s.r[1][i], x2 = q[0][i], y2 = q[1][i];
+    s.f[p][i] = p == 0 ? y1 - x1 : p == 1 ? y1 + x1 : s.r[p == 2 ? 3 : 2][i];
+    s.g[p][i] = p == 0 ? y2 - x2 : p == 1 ? y2 + x2 : q[p == 2 ? 3 : 2][i];
+  }
+  warp_products(s, 4, 0);                      // a, b, T1 T2, Z1 Z2
+  if (lane < 10) {
+    s.f[0][lane] = s.r[2][lane];
+    s.g[0][lane] = s.d2[lane];
+  }
+  warp_products(s, 1, 4);                      // c = T1 T2 * 2d
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
+    const int p = t / 10, i = t % 10;
+    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[3][i], c = s.r[4][i];
+    const int32_t d = zz + zz, e = b - a, f = d - c, g = d + c, h = b + a;
+    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
+    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
+  }
+  warp_products(s, 4, 0);                      // X, Y, Z, T
+}
+
+__global__ void __launch_bounds__(32)
 horner_kernel(const int32_t* __restrict__ ws, int k, int nwin, int c,
               int32_t* __restrict__ out) {
-  const int64_t v = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (v >= k) return;
-  const int64_t n = (int64_t)k * nwin;
-  ge acc = ge_load(ws, n, v * nwin + nwin - 1);
-  for (int w = nwin - 2; w >= 0; w--) {
-    for (int i = 0; i < c; i++) acc = ge_dbl(acc);
-    acc = ge_add(acc, ge_load(ws, n, v * nwin + w));
+  __shared__ HornerScratch s;
+  const int lane = threadIdx.x;
+  const int64_t v = blockIdx.x, n = (int64_t)k * nwin;
+  for (int t = lane; t < 40 * nwin; t += 32) {  // windows fastest: coalesced
+    const int r = t / nwin, w = t % nwin;
+    const int32_t x = ws[r * n + v * nwin + w];
+    s.q[w][r / 10][r % 10] = x;
+    if (w == nwin - 1) s.r[r / 10][r % 10] = x;  // acc = the top window
   }
-  ge_store(out, k, v, acc);
+  if (lane == 0) {
+    const fe d2 = fe_d2();
+#pragma unroll
+    for (int i = 0; i < 10; i++) s.d2[i] = d2.v[i];
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int w = nwin - 2; w >= 0; w--) {
+#pragma unroll 1
+    for (int i = 0; i < c; i++) warp_dbl(s);
+    warp_add(s, w);
+  }
+  for (int t = lane; t < 40; t += 32) out[t * k + v] = s.r[t / 10][t % 10];
 }
 
 // K7: lane i of out = p[lane i] + q[lane i] (unified addition).
@@ -220,15 +438,18 @@ int bpg_bucket_merge(const void* pool, int P, const void* offs,
 
 int bpg_window_sums(const void* buckets, int nw, int nb, void* out,
                     void* stream) {
-  window_sums_kernel<<<blocks_for(nw), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)buckets, nw, nb, (int32_t*)out);
+  if (nb != kNB) return (int)cudaErrorInvalidValue;  // the staging's size
+  window_sums_kernel<<<(nw + kWinPerBlock - 1) / kWinPerBlock,
+                       32 * kWinPerBlock, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)buckets, nw, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
 int bpg_horner(const void* ws, int k, int nwin, int c, void* out,
                void* stream) {
-  horner_kernel<<<blocks_for(k), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)ws, k, nwin, c, (int32_t*)out);
+  if (nwin < 1 || nwin > kMaxWin) return (int)cudaErrorInvalidValue;
+  horner_kernel<<<k, 32, 0, (cudaStream_t)stream>>>((const int32_t*)ws, k,
+                                                    nwin, c, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

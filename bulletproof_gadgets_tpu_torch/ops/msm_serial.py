@@ -18,10 +18,13 @@ One MSM of k scalar vectors over an n-point source:
   K2       bucket_accumulate_cont: K1 started from a carried pool (the
            round chunks below).
   K3       bucket_merge: one thread per bucket sums its lanes in order.
-  K4       window_sums: one thread per window, sum_b b*S_b by the running
-           sum (2*NB adds, no scalar multiplies).
-  K5       horner: one thread per vector, windows high to low, c doublings
-           and one add per window.
+  K4       window_sums: one warp per window, sum_b b*S_b with no scalar
+           multiplies: each lane sums four buckets, then a suffix scan and
+           a tree reduction across the warp (19 dependent point operations
+           per window).
+  K5       horner: one warp per vector, windows high to low, c doublings
+           and one add per window, each field multiplication of a point
+           operation spread over 8 lanes.
   readback the k extended points, once; compressed on the host.
 
 Layouts of the bucket accumulation (`LAYOUTS`, the `layout` argument of
@@ -99,6 +102,8 @@ NL = fp.NL
 C = 8                     # window width (byte-wise digit recode)
 NB = 1 << (C - 1)         # 128 buckets per window
 W = 32 * 8 // C           # 32 windows per 256-bit scalar
+LANES = 32                # K4: lanes (one warp) per window
+BUCKETS_PER_LANE = NB // LANES
 ROW = 32                  # int32 per source row: x | y | t2d | 2 pad = 128 B
 _2D = 2 * _D % _P
 # Round budget: T = ceil(entries / _LANE_TARGET), at least _MIN_ROUNDS, so
@@ -370,11 +375,12 @@ def window_sums(buckets):
     -> int32 [4, NL, nw], window w = sum_j (j+1) * S[w*NB + j].
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_window_scan_kernel
-    (a double masked suffix scan).  Bound on the H100: latency — 2*NB
-    dependent adds per window with only k*W windows in flight.  Design: one
-    thread per window runs the running-sum recurrence (running += S_j,
-    total += running, j from NB-1 down), the same adds as the scan without
-    its log-step waste."""
+    (a double masked suffix scan, 2 x 7 steps).  Bound on the H100: the
+    dependent chain of point operations per window; the running sum is 2*NB
+    = 256 of them, one thread's, with only k*W windows in flight.  Design
+    (csrc/msm_kernels.cu): one warp per window, lane s owning buckets
+    4s..4s+3 (LANES x BUCKETS_PER_LANE); the chain is 19 operations, in the
+    order that window_sums_plain spells out."""
     native.check(buckets, "buckets", (4, NL, None))
     if buckets.shape[2] % NB:
         raise ValueError("buckets: lane count not a multiple of NB")
@@ -389,14 +395,34 @@ def window_sums(buckets):
 
 
 def window_sums_plain(buckets):
+    """K4's adds in K4's order, for all windows at once.  Lane s of a
+    window holds its buckets S_4s+i (i < 4); with U_s their sum, T_s =
+    sum_i (i+1) S_4s+i and V_s = U_s + .. + U_31, the window is
+    sum_s T_s + 4 * sum_{s>=1} V_s."""
     nw = buckets.shape[2] // NB
-    b = curve.unstack(buckets.view(4, NL, nw, NB))
-    running = curve.identity((nw,), buckets.device)
-    total = curve.identity((nw,), buckets.device)
-    for j in range(NB - 1, -1, -1):
-        running = curve.padd(running, tuple(c[..., j] for c in b))
-        total = curve.padd(total, running)
-    return curve.stack(total)
+    s = curve.unstack(buckets.view(4, NL, nw, LANES, BUCKETS_PER_LANE))
+
+    def lanes(p, lo, hi):
+        return tuple(c[..., lo:hi] for c in p)
+
+    def join(*parts):
+        return tuple(torch.cat(cs, -1) for cs in zip(*parts))
+    run = tot = tuple(c[..., BUCKETS_PER_LANE - 1] for c in s)
+    for i in range(BUCKETS_PER_LANE - 2, -1, -1):   # U_s, T_s: running sums
+        run = curve.padd(run, tuple(c[..., i] for c in s))
+        tot = curve.padd(tot, run)
+    d = 1
+    while d < LANES:                     # V_s += V_s+d while s + d < LANES
+        run = join(curve.padd(lanes(run, 0, LANES - d),
+                              lanes(run, d, LANES)),
+                   lanes(run, LANES - d, LANES))
+        d *= 2
+    four = curve.dbl(curve.dbl(lanes(run, 1, LANES)))
+    tot = join(lanes(tot, 0, 1), curve.padd(lanes(tot, 1, LANES), four))
+    while d > 1:                         # Q_s += Q_s+d while s < d
+        d //= 2
+        tot = curve.padd(lanes(tot, 0, d), lanes(tot, d, 2 * d))
+    return curve.stack(tuple(c[..., 0] for c in tot))
 
 
 # ---------------------------------------------------------------------------
@@ -407,9 +433,13 @@ def horner(ws, k):
     [4, NL, k], vector v = sum_w 2^(C*w) * ws[v*W + w].
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_horner_kernel.
-    Bound on the H100: latency — (W-1)*(C+1) dependent point operations
-    per vector, k threads.  Design: one thread per vector, dedicated
-    doublings (4 squarings + 4 muls) instead of the TPU's padd(acc, acc)."""
+    Bound on the H100: latency — (W-1)*(C+1) = 279 dependent point
+    operations per vector.  Design (csrc/msm_kernels.cu): one warp per
+    vector; each point operation runs as levels of independent field
+    products (dbl: 4 + 4, padd: 4 + 1 + 4), each product's ten int64
+    column sums formed by 8 lanes and carried as fe_mul carries them.
+    Dedicated doublings (4 squarings + 4 muls) instead of the TPU's
+    padd(acc, acc); the limbs are horner_plain's."""
     native.check(ws, "ws", (4, NL, k * W))
     lib = native.kernels_for(ws)
     if lib is None:

@@ -10,7 +10,11 @@ Phases (one line each; any failure raises and exits non-zero):
      (2^14 gens, 32,770-point table), recorded from one prove + verify of
      it, and K6 (the IPA table-fold ladder) on the same prove's fold
      (16,384 generators folded 16-fold: 2,048 outputs of 16 terms):
-     canonical limbs must be equal (tolerance 0), with times;
+     canonical limbs must be equal (tolerance 0), with times; K4's and
+     K5's registers and spills from the build, and their times as
+     multiples of K1's on the same launch (K4 and K5 are held against
+     their plain versions at k = 9 too, after phase 6 has recorded the
+     stacked merkle32 x 3 launch);
   3. whole MSMs against the host Pippenger `core.msm.msm_host` at n = 2^10
      (k = 1 and k = 3; random, bit-vector and all-zero vectors, scalars
      >= L; the k = 3 case also in point chunks of 256);
@@ -163,10 +167,11 @@ def compare(name, label, kern, plain, shape, muls, tensors):
     return err, t_k, t_p, b_ms, b_by
 
 
-def check_kernels(ms, digits, src, n, label):
-    """Every MSM kernel against its plain version on one MSM's real inputs
-    (its device digits [k*W, n] over the source rows).  Returns {name:
-    (max_abs_err, ms, plain_ms, bound_ms, bound_by)}."""
+def check_kernels(ms, digits, src, n, label, only=None):
+    """Every MSM kernel (or those named in `only`) against its plain
+    version on one MSM's real inputs (its device digits [k*W, n] over the
+    source rows).  Returns {name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}."""
     k = digits.shape[0] // ms.W
     idx, offs, sub = ms.plan(digits, n)
     pool = ms.bucket_accumulate(src, idx)
@@ -200,7 +205,20 @@ def check_kernels(ms, digits, src, n, label):
             f"k={k}",
             k * (ms.W - 1) * (ms.C * MULS["dbl"] + MULS["padd"]), (ws,)),
     }
-    return {name: compare(name, label, *st) for name, st in stages.items()}
+    return {name: compare(name, label, *st) for name, st in stages.items()
+            if only is None or name in only}
+
+
+def ptxas_usage(log, kernel):
+    """The registers and spills that ptxas (-Xptxas -v) reports for the
+    kernel whose mangled name contains `kernel`."""
+    lines, mine = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            mine = kernel in line
+        elif mine and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    return "; ".join(lines) or "not in the build log"
 
 
 def check_fold(ipa_fold, src, base, dig):
@@ -712,7 +730,16 @@ def main() -> int:
         f"{device}) and one fold recorded from one prove + verify in "
         f"{time.time() - t0:.1f} s")
     results = check_kernels(ms, *calls[0], "k=3 commitment launch")
-    check_kernels(ms, *calls[-1], "k=1 verifier launch")
+    verifier = check_kernels(ms, *calls[-1], "k=1 verifier launch")
+    for name, kernel in (("K4", "window_sums_kernel"),
+                         ("K5", "horner_kernel")):
+        say(f"ptxas {name} {kernel}: {ptxas_usage(native.BUILD_LOG, kernel)}")
+    for label, res in (("k=3 commitment", results),
+                       ("k=1 verifier", verifier)):
+        k1 = res["bucket_accumulate"][1]
+        say(f"on the example's {label} launch: K4 "
+            f"{res['window_sums'][1] / k1:.3f}x K1, K5 "
+            f"{res['horner'][1] / k1:.3f}x K1 (K1 {k1:.3f} ms)")
     results["ladder_fold"] = check_fold(ipa_fold, *folds[0])
     ex_call = calls[0]                           # phase 9's example launch
     del calls[:], folds[:]
@@ -857,6 +884,10 @@ def main() -> int:
 
     # 6. the batch path; 7. K2 and the round chunks; 8. ms per witness
     batch_launches, k2_in, stacked, rows_batch = batch_path(pins, ms)
+    s_digits, s_src, s_n = stacked               # K4 and K5 at k = 9
+    check_kernels(ms, s_digits[:, :ms.POINT_CHUNK], s_src, s_n,
+                  "merkle32 x 3 stacked k=9 launch, first point chunk",
+                  only=("window_sums", "horner"))
     results["bucket_accumulate_cont"] = check_cont(ms, *k2_in)
     round_chunk_times(ms, *stacked)
     bound64_per_witness(device)

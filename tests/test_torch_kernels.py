@@ -21,7 +21,7 @@ from bulletproof_gadgets_tpu_torch.core.gens import BulletproofGens
 from bulletproof_gadgets_tpu_torch.core.msm import msm_host
 from bulletproof_gadgets_tpu_torch.core.gens import PedersenGens
 from bulletproof_gadgets_tpu_torch.core.scalar import L
-from bulletproof_gadgets_tpu_torch.ops import flvec, ipa_fold
+from bulletproof_gadgets_tpu_torch.ops import curve, flvec, ipa_fold
 from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +90,32 @@ def test_kernel_equals_plain(stage, stage_inputs):
     assert torch.equal(got, want)          # same limbs, tolerance 0
     if stage.startswith("bucket_accumulate_"):  # K2, K8-K10: K1's pool
         assert torch.equal(got, stage_inputs["pool"])
+
+
+@pytest.fixture(scope="module")
+def scan_inputs(stage_inputs):
+    """K4 and K5 inputs at k = 9 (288 windows: 144 K4 blocks, 9 K5 blocks)
+    from the k=3 MSM's real buckets, and all-identity ones."""
+    b = stage_inputs["buckets"]
+    buckets9 = torch.cat([b, b.flip(2), b.roll(1000, 2)], 2).contiguous()
+    n = buckets9.shape[2]
+    ident = curve.stack(curve.identity((n,), b.device))
+    return {"real": (buckets9, ms.window_sums(buckets9)),
+            "identity": (ident, ident[:, :, :n // ms.NB].contiguous())}
+
+
+@pytest.mark.parametrize("case", ["real", "identity"])
+def test_scans_equal_plain_at_k9(scan_inputs, case):
+    """K4 and K5 against their plain versions at tolerance 0 on k = 9
+    vectors (more than one block of each kernel)."""
+    buckets, ws = scan_inputs[case]
+    for name, args in (("window_sums", (buckets,)), ("horner", (ws, 9))):
+        before = ms.LAUNCHES[name]
+        got = getattr(ms, name)(*args)
+        torch.cuda.synchronize()
+        assert ms.LAUNCHES[name] == before + 1
+        assert got.is_cuda and torch.equal(got, getattr(ms, name + "_plain")(
+            *args))
 
 
 def test_msm_equals_host(stage_inputs):
