@@ -308,4 +308,139 @@ __device__ __forceinline__ void ge_store(int32_t* __restrict__ base,
   fe_store(base, n, j, 3, p.T);
 }
 
+// lane-wise shuffle of a whole point (every lane of the warp takes part)
+__device__ __forceinline__ ge ge_shfl_down(const ge& p, int d) {
+  ge r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    r.X.v[i] = __shfl_down_sync(0xffffffffu, p.X.v[i], d);
+    r.Y.v[i] = __shfl_down_sync(0xffffffffu, p.Y.v[i], d);
+    r.Z.v[i] = __shfl_down_sync(0xffffffffu, p.Z.v[i], d);
+    r.T.v[i] = __shfl_down_sync(0xffffffffu, p.T.v[i], d);
+  }
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// Point operations of one point, spread over a whole warp (K5's Horner and
+// the top of K6's fold tree).  The point lives in shared memory; each
+// operation runs as levels of up to four independent field products, and
+// in a level, group p = lane / 8 forms product p: lane q of the group forms
+// the int64 column sums h_q and (q < 2) h_q+8 of fe_mul (10 products each),
+// lane 0 of the group gathers the ten by shuffles and runs fe_carry on them.
+// The column sums, the carry order and the sequence of operations are
+// those of fe_mul, ge_dbl and ge_add, so the limbs are theirs.
+
+struct WarpScratch {
+  int32_t f[4][10];        // a level's operands
+  int32_t g[4][10];
+  int32_t r[5][10];        // its products; r[0..3] = the accumulator
+  int32_t d2[10];
+};
+
+// 2d into s.d2 (each lane < 10 writes one limb; warp_products syncs)
+__device__ __forceinline__ void warp_scratch_init(WarpScratch& s) {
+  const int lane = threadIdx.x & 31;
+  const fe d2 = fe_d2();
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    if (lane == i) s.d2[i] = d2.v[i];
+}
+
+// column k of f * g as fe_mul forms it: h_k = d_k + 19 w_k
+__device__ __forceinline__ int64_t fe_column(const int32_t* f,
+                                             const int32_t* g, int k) {
+  int64_t d = 0, w = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    const bool wrap = i > k;
+    const int j = wrap ? k - i + 10 : k - i;
+    const int32_t fi = ((i & 1) && (j & 1)) ? 2 * f[i] : f[i];
+    const int64_t p = (int64_t)fi * g[j];
+    if (wrap)
+      w += p;
+    else
+      d += p;
+  }
+  return d + 19 * w;
+}
+
+// One level of n <= 4 independent products: s.r[out + p] = s.f[p] * s.g[p]
+// (the operands written before the call; the products readable after it).
+// Lanes q >= 2 form their own column twice, so that every lane runs the
+// same straight-line code.
+__device__ __forceinline__ void warp_products(WarpScratch& s, int n,
+                                              int out) {
+  const int lane = threadIdx.x & 31, p = lane >> 3, q = lane & 7;
+  __syncwarp();
+  int64_t a = 0, b = 0;
+  if (p < n) {
+    a = fe_column(s.f[p], s.g[p], q);
+    b = fe_column(s.f[p], s.g[p], q < 2 ? q + 8 : q);
+  }
+  int64_t h[10];
+  const int g0 = lane & ~7;
+#pragma unroll
+  for (int i = 0; i < 8; i++) h[i] = __shfl_sync(0xffffffffu, a, g0 + i);
+  h[8] = __shfl_sync(0xffffffffu, b, g0);
+  h[9] = __shfl_sync(0xffffffffu, b, g0 + 1);
+  if (p < n && q == 0) {
+    const fe r = fe_carry(h);
+#pragma unroll
+    for (int i = 0; i < 10; i++) s.r[out + p][i] = r.v[i];
+  }
+  __syncwarp();
+}
+
+// the accumulator s.r[0..3] doubled, as ge_dbl
+__device__ __forceinline__ void warp_dbl(WarpScratch& s) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // X^2, Y^2, Z^2, (X + Y)^2
+    const int p = t / 10, i = t % 10;
+    const int32_t v = p < 3 ? s.r[p][i] : s.r[0][i] + s.r[1][i];
+    s.f[p][i] = v;
+    s.g[p][i] = v;
+  }
+  warp_products(s, 4, 0);                      // a, b, zz, xysq
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
+    const int p = t / 10, i = t % 10;
+    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[2][i];
+    const int32_t h = a + b, e = h - s.r[3][i], g = a - b, f = (zz + zz) + g;
+    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
+    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
+  }
+  warp_products(s, 4, 0);                      // X, Y, Z, T
+}
+
+// the accumulator s.r[0..3] plus the point q (shared memory, [4][10]), as
+// ge_add(acc, q)
+__device__ __forceinline__ void warp_add(WarpScratch& s,
+                                         const int32_t (*q)[10]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {
+    const int p = t / 10, i = t % 10;
+    const int32_t x1 = s.r[0][i], y1 = s.r[1][i], x2 = q[0][i], y2 = q[1][i];
+    s.f[p][i] = p == 0 ? y1 - x1 : p == 1 ? y1 + x1 : s.r[p == 2 ? 3 : 2][i];
+    s.g[p][i] = p == 0 ? y2 - x2 : p == 1 ? y2 + x2 : q[p == 2 ? 3 : 2][i];
+  }
+  warp_products(s, 4, 0);                      // a, b, T1 T2, Z1 Z2
+  if (lane < 10) {
+    s.f[0][lane] = s.r[2][lane];
+    s.g[0][lane] = s.d2[lane];
+  }
+  warp_products(s, 1, 4);                      // c = T1 T2 * 2d
+#pragma unroll
+  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
+    const int p = t / 10, i = t % 10;
+    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[3][i], c = s.r[4][i];
+    const int32_t d = zz + zz, e = b - a, f = d - c, g = d + c, h = b + a;
+    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
+    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
+  }
+  warp_products(s, 4, 0);                      // X, Y, Z, T
+}
+
 }  // namespace bpg

@@ -97,22 +97,87 @@ bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
   ge_store(out, P, lane, acc);
 }
 
-// K3: bucket b sums its lanes offs[b] .. offs[b] + sub[b] - 1 in order.
-__global__ void __launch_bounds__(kThreads)
+// K3: bucket sums, replacing
+// bulletproof_gadgets_tpu/ops/msm_serial.py:_merge_scan_kernel (a
+// segmented Hillis-Steele scan read at each bucket's last lane).  Bucket b
+// = the sum of its pool lanes L_i = offs[b] + i, i < sub[b].  Most buckets
+// have about avg = ceil(P / M) lanes (2-17 on the main path), but some
+// split over many more (a bit-vector's digit over ~n/T lanes: 55 on the
+// example's commitment launch, 137 on its verifier launch), often side by
+// side in one window; one thread per bucket adding its lanes in sequence
+// makes the launch as long as the longest (~5 us per unified add).  Bound
+// on the H100: the bytes (the pool read once), far below those chains; and
+// a unified add costs a warp ~4.5 us of issue whether 1 or 32 of its lanes
+// run it (the 64-bit multiply rate), so lanes must not idle either.
+// Design: a group of G lanes per bucket, G the largest power of two <= 32
+// with 8G <= avg (1 if none), 32 / G buckets per warp; a bucket of more
+// than `lng` = 2 avg lanes is long, and a whole warp sums it instead.  Warp
+// w < W = ceil(M G / 32) takes the short buckets among w, w + W, w + 2W,
+// ... (strided, so that a window's long buckets fall to different warps),
+// warp W + w the long ones among the same buckets, one after another.
+// With g = 32 for a long bucket, else G, and cnt = min(sub, g):
+//   1. lane j < cnt of the bucket's group forms Q_j = L_j + L_j+g +
+//      L_j+2g + ... in increasing order;
+//   2. a tree by shuffles: for d = g/2, ..., 2, 1, lane j < d with
+//      j + d < cnt sets Q_j += Q_j+d.
+// An add happens only where both operands hold lanes of the bucket: a
+// bucket of one lane is a copy, an empty one the identity.  The longest
+// chain is ceil(sub / g) - 1 + log2 g adds per bucket (9 at sub = 137,
+// from 136; at most 2 avg - 1 for a short bucket at G = 1), summed over
+// the long buckets of one warp.  This order of adds is the kernel's
+// specification: ops/msm_serial.bucket_merge_plain performs the same adds
+// in the same order (ops/msm_serial.merge_shape gives G and lng).
+constexpr int kMergeWarps = 4;
+
+// steps 1 and 2 for one bucket (lanes o .. o + s - 1 of the pool) by a
+// group of g lanes, this lane being lane j of it: Q_0 in lane j = 0
+__device__ __forceinline__ ge merge_group(const int32_t* __restrict__ pool,
+                                          int P, int64_t o, int s, int g,
+                                          int j, int cnt) {
+  ge acc = ge_identity();
+  if (j < cnt) {                               // 1. Q_j
+    acc = ge_load(pool, P, o + j);
+#pragma unroll 1
+    for (int i = j + g; i < s; i += g)
+      acc = ge_add(acc, ge_load(pool, P, o + i));
+  }
+#pragma unroll 1
+  for (int d = g / 2; d > 0; d >>= 1) {        // 2. the tree
+    const ge q = ge_shfl_down(acc, d);
+    if (j < d && j + d < cnt) acc = ge_add(acc, q);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(32 * kMergeWarps)
 bucket_merge_kernel(const int32_t* __restrict__ pool, int P,
                     const int32_t* __restrict__ offs,
-                    const int32_t* __restrict__ sub, int M,
+                    const int32_t* __restrict__ sub, int M, int G, int lng,
                     int32_t* __restrict__ out) {
-  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= M) return;
-  const int s = sub[b];
-  ge acc = ge_identity();
-  if (s > 0) {
-    const int64_t o = offs[b];
-    acc = ge_load(pool, P, o);
-    for (int j = 1; j < s; j++) acc = ge_add(acc, ge_load(pool, P, o + j));
+  const int lane = threadIdx.x & 31, per_warp = 32 / G;
+  const int64_t W = ((int64_t)M + per_warp - 1) / per_warp;
+  const int64_t w = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (w < W) {                                 // the short buckets
+    const int64_t b = w + (lane / G) * W;
+    const int s = b < M ? sub[b] : 0;
+    const bool mine = b < M && s <= lng;
+    const int j = lane & (G - 1);
+    const ge acc = merge_group(pool, P, mine ? offs[b] : 0, s, G, j,
+                               mine ? min(s, G) : 0);
+    if (mine && j == 0) ge_store(out, M, b, acc);
+  } else if (w < 2 * W) {                      // the long ones, in order
+    const int64_t w0 = w - W;
+    const int64_t b = w0 + lane * W;
+    unsigned longs = __ballot_sync(
+        0xffffffffu, lane < per_warp && b < M && sub[b] > lng);
+    while (longs) {
+      const int64_t lb = w0 + (int64_t)(__ffs(longs) - 1) * W;
+      longs &= longs - 1;
+      const int ls = sub[lb];
+      const ge q = merge_group(pool, P, offs[lb], ls, 32, lane, min(ls, 32));
+      if (lane == 0) ge_store(out, M, lb, q);
+    }
   }
-  ge_store(out, M, b, acc);
 }
 
 // K4: window sums, replacing
@@ -141,18 +206,6 @@ bucket_merge_kernel(const int32_t* __restrict__ pool, int P,
 // order, so the two agree limb for limb.
 constexpr int kNB = 128;
 constexpr int kWinPerBlock = 2;
-
-__device__ __forceinline__ ge ge_shfl_down(const ge& p, int d) {
-  ge r;
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    r.X.v[i] = __shfl_down_sync(0xffffffffu, p.X.v[i], d);
-    r.Y.v[i] = __shfl_down_sync(0xffffffffu, p.Y.v[i], d);
-    r.Z.v[i] = __shfl_down_sync(0xffffffffu, p.Z.v[i], d);
-    r.T.v[i] = __shfl_down_sync(0xffffffffu, p.T.v[i], d);
-  }
-  return r;
-}
 
 __global__ void __launch_bounds__(32 * kWinPerBlock)
 window_sums_kernel(const int32_t* __restrict__ buckets, int nw,
@@ -221,121 +274,20 @@ window_sums_kernel(const int32_t* __restrict__ buckets, int nw,
 // sums in shared memory, and each point operation as levels of
 // independent field products spread over the warp: ge_dbl is two levels
 // of four (the four squarings, then the four products), ge_add three (four
-// products, T1 T2 * 2d, four products).  In a level, group p = lane / 8
-// forms product p: lane q of the group forms the int64 column sums
-// h_q and (q < 2) h_q+8 of fe_mul (10 products each), lane 0 of the group
-// gathers the ten by shuffles and runs fe_carry on them.  So every field
-// multiplication is spread over 8 lanes, and a level costs two columns,
-// ten shuffles, one carry chain and two warp barriers instead of up to
-// four whole fe_muls.  What remains of a level (~0.44 us on the H100) is
-// the carry chain (7 dependent 64-bit carries) and the barriers' shared-
-// memory round trips.  The column sums, the carry order and the sequence
-// of operations are those of fe_mul, ge_dbl and ge_add, so the limbs are
-// those of ops/msm_serial.horner_plain.
+// products, T1 T2 * 2d, four products), by field.cuh's warp_dbl and
+// warp_add: every field multiplication is spread over 8 lanes, and a level
+// costs two columns, ten shuffles, one carry chain and two warp barriers
+// instead of up to four whole fe_muls.  What remains of a level (~0.44 us
+// on the H100) is the carry chain (7 dependent 64-bit carries) and the
+// barriers' shared-memory round trips.  The column sums, the carry order
+// and the sequence of operations are those of fe_mul, ge_dbl and ge_add,
+// so the limbs are those of ops/msm_serial.horner_plain.
 constexpr int kMaxWin = 32;
 
 struct HornerScratch {
-  int32_t f[4][10];        // a level's operands
-  int32_t g[4][10];
-  int32_t r[5][10];        // its products; r[0..3] = the accumulator
-  int32_t d2[10];
+  WarpScratch w;              // the accumulator, a level's operands
   int32_t q[kMaxWin][4][10];  // the vector's window sums
 };
-
-// column k of f * g as fe_mul forms it: h_k = d_k + 19 w_k
-__device__ __forceinline__ int64_t fe_column(const int32_t* f,
-                                             const int32_t* g, int k) {
-  int64_t d = 0, w = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    const bool wrap = i > k;
-    const int j = wrap ? k - i + 10 : k - i;
-    const int32_t fi = ((i & 1) && (j & 1)) ? 2 * f[i] : f[i];
-    const int64_t p = (int64_t)fi * g[j];
-    if (wrap)
-      w += p;
-    else
-      d += p;
-  }
-  return d + 19 * w;
-}
-
-// One level of n <= 4 independent products: s.r[out + p] = s.f[p] * s.g[p]
-// (the operands written before the call; the products readable after it).
-// Lanes q >= 2 form their own column twice, so that every lane runs the
-// same straight-line code.
-__device__ __forceinline__ void warp_products(HornerScratch& s, int n,
-                                              int out) {
-  const int lane = threadIdx.x & 31, p = lane >> 3, q = lane & 7;
-  __syncwarp();
-  int64_t a = 0, b = 0;
-  if (p < n) {
-    a = fe_column(s.f[p], s.g[p], q);
-    b = fe_column(s.f[p], s.g[p], q < 2 ? q + 8 : q);
-  }
-  int64_t h[10];
-  const int g0 = lane & ~7;
-#pragma unroll
-  for (int i = 0; i < 8; i++) h[i] = __shfl_sync(0xffffffffu, a, g0 + i);
-  h[8] = __shfl_sync(0xffffffffu, b, g0);
-  h[9] = __shfl_sync(0xffffffffu, b, g0 + 1);
-  if (p < n && q == 0) {
-    const fe r = fe_carry(h);
-#pragma unroll
-    for (int i = 0; i < 10; i++) s.r[out + p][i] = r.v[i];
-  }
-  __syncwarp();
-}
-
-// the accumulator s.r[0..3] doubled, as ge_dbl
-__device__ __forceinline__ void warp_dbl(HornerScratch& s) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = lane; t < 40; t += 32) {        // X^2, Y^2, Z^2, (X + Y)^2
-    const int p = t / 10, i = t % 10;
-    const int32_t v = p < 3 ? s.r[p][i] : s.r[0][i] + s.r[1][i];
-    s.f[p][i] = v;
-    s.g[p][i] = v;
-  }
-  warp_products(s, 4, 0);                      // a, b, zz, xysq
-#pragma unroll
-  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
-    const int p = t / 10, i = t % 10;
-    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[2][i];
-    const int32_t h = a + b, e = h - s.r[3][i], g = a - b, f = (zz + zz) + g;
-    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
-    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
-  }
-  warp_products(s, 4, 0);                      // X, Y, Z, T
-}
-
-// the accumulator s.r[0..3] plus window sum w, as ge_add(acc, q)
-__device__ __forceinline__ void warp_add(HornerScratch& s, int w) {
-  const int lane = threadIdx.x & 31;
-  const int32_t(*q)[10] = s.q[w];
-#pragma unroll
-  for (int t = lane; t < 40; t += 32) {
-    const int p = t / 10, i = t % 10;
-    const int32_t x1 = s.r[0][i], y1 = s.r[1][i], x2 = q[0][i], y2 = q[1][i];
-    s.f[p][i] = p == 0 ? y1 - x1 : p == 1 ? y1 + x1 : s.r[p == 2 ? 3 : 2][i];
-    s.g[p][i] = p == 0 ? y2 - x2 : p == 1 ? y2 + x2 : q[p == 2 ? 3 : 2][i];
-  }
-  warp_products(s, 4, 0);                      // a, b, T1 T2, Z1 Z2
-  if (lane < 10) {
-    s.f[0][lane] = s.r[2][lane];
-    s.g[0][lane] = s.d2[lane];
-  }
-  warp_products(s, 1, 4);                      // c = T1 T2 * 2d
-#pragma unroll
-  for (int t = lane; t < 40; t += 32) {        // e f, g h, f g, e h
-    const int p = t / 10, i = t % 10;
-    const int32_t a = s.r[0][i], b = s.r[1][i], zz = s.r[3][i], c = s.r[4][i];
-    const int32_t d = zz + zz, e = b - a, f = d - c, g = d + c, h = b + a;
-    s.f[p][i] = p == 0 ? e : p == 1 ? g : p == 2 ? f : e;
-    s.g[p][i] = p == 0 ? f : p == 1 ? h : p == 2 ? g : h;
-  }
-  warp_products(s, 4, 0);                      // X, Y, Z, T
-}
 
 __global__ void __launch_bounds__(32)
 horner_kernel(const int32_t* __restrict__ ws, int k, int nwin, int c,
@@ -347,21 +299,17 @@ horner_kernel(const int32_t* __restrict__ ws, int k, int nwin, int c,
     const int r = t / nwin, w = t % nwin;
     const int32_t x = ws[r * n + v * nwin + w];
     s.q[w][r / 10][r % 10] = x;
-    if (w == nwin - 1) s.r[r / 10][r % 10] = x;  // acc = the top window
+    if (w == nwin - 1) s.w.r[r / 10][r % 10] = x;  // acc = the top window
   }
-  if (lane == 0) {
-    const fe d2 = fe_d2();
-#pragma unroll
-    for (int i = 0; i < 10; i++) s.d2[i] = d2.v[i];
-  }
+  warp_scratch_init(s.w);
   __syncwarp();
 #pragma unroll 1
   for (int w = nwin - 2; w >= 0; w--) {
 #pragma unroll 1
-    for (int i = 0; i < c; i++) warp_dbl(s);
-    warp_add(s, w);
+    for (int i = 0; i < c; i++) warp_dbl(s.w);
+    warp_add(s.w, s.q[w]);
   }
-  for (int t = lane; t < 40; t += 32) out[t * k + v] = s.r[t / 10][t % 10];
+  for (int t = lane; t < 40; t += 32) out[t * k + v] = s.w.r[t / 10][t % 10];
 }
 
 // K7: lane i of out = p[lane i] + q[lane i] (unified addition).
@@ -428,11 +376,16 @@ int bpg_bucket_accumulate_flat(const void* g, int64_t T, int64_t P,
   return (int)cudaGetLastError();
 }
 
+// G in {1, 2, 4, .., 32} (cudaErrorInvalidValue otherwise)
 int bpg_bucket_merge(const void* pool, int P, const void* offs,
-                     const void* sub, int M, void* out, void* stream) {
-  bucket_merge_kernel<<<blocks_for(M), kThreads, 0, (cudaStream_t)stream>>>(
+                     const void* sub, int M, int G, int lng, void* out,
+                     void* stream) {
+  if (G < 1 || G > 32 || (G & (G - 1))) return (int)cudaErrorInvalidValue;
+  const int64_t warps = 2 * (((int64_t)M + 32 / G - 1) / (32 / G));
+  bucket_merge_kernel<<<(int)((warps + kMergeWarps - 1) / kMergeWarps),
+                        32 * kMergeWarps, 0, (cudaStream_t)stream>>>(
       (const int32_t*)pool, P, (const int32_t*)offs, (const int32_t*)sub, M,
-      (int32_t*)out);
+      G, lng, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -36,10 +36,10 @@ _FUNCS = {
     "bpg_bucket_accumulate_cols": [_P, _I64, _I64, _P, _P],
     "bpg_bucket_accumulate_cols_cont": [_P, _I64, _I64, _P, _P, _P],
     "bpg_bucket_accumulate_flat": [_P, _I64, _I64, _P, _P],
-    "bpg_bucket_merge": [_P, _I, _P, _P, _I, _P, _P],
+    "bpg_bucket_merge": [_P, _I, _P, _P, _I, _I, _I, _P, _P],
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
-    "bpg_ladder_fold": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "bpg_ladder_fold": [_P, _P, _P, _I, _I, _P, _P],
     "bpg_point_add": [_P, _P, _I, _P, _P],
 }
 

@@ -12,17 +12,17 @@ table 2^d times smaller.
   digits    the coefficients (Montgomery) -> std -> 64 signed 4-bit windows
             per term, on the device (`digits4_dev`, the +0x88..8 bias of
             ops/flvec.windows, no carry chain over the windows);
-  K6        `ladder_fold`: per output lane, the multiples 1P..8P of its 2^d
-            points in cached form, the 64-window ladder (4 doublings, then
-            2^d select-and-add steps per window), then the Z inversion to
-            canonical affine source rows and their negations;
+  K6        `ladder_fold`: per output, the multiples 1P..8P of its 2^d
+            points in cached form, O = sum over 64 signed 4-bit windows of
+            the 2^d selected multiples, then the Z inversion to canonical
+            affine source rows and their negations;
   assemble  the new source rows [G' | H' | B | Bb | negs | identity] in the
             ops/msm_serial.prep_source layout.
 
 The fold parameters are module constants and arguments of ipa_fused.create,
 not environment knobs.  The JAX package cuts a fold into slabs of <= 2^17
-ladder terms to bound TPU memory; here one launch folds both halves (the
-multiples scratch is 1.3 KB per term: 42 MB for a 2^14-gens table).
+ladder terms to bound TPU memory; here one launch folds both halves (each
+output's multiples live in the kernel's shared memory).
 """
 import torch
 
@@ -32,6 +32,7 @@ from .. import native
 
 FOLD_AT = 4          # fold every 4 rounds of a segment ...
 FOLD_MIN = 512       # ... while the folded table keeps >= 512 generators
+MAX_TERMS = 32       # K6 takes folds of 2^d <= 32 terms (its shared memory)
 
 
 def digits4_dev(std_rows):
@@ -52,29 +53,31 @@ def ladder_fold(src, base, dig):
 
     Replaces bulletproof_gadgets_tpu/ops/ipa_fold.py:_ladder_kernel and
     the XLA around it in _mat_slab (multiples, Z inversion).  Bound on the
-    H100: integer multiplies, ~64*(4*8 + K*8) + 265 field muls of 100
-    32x32->64 products per output, against a few KB moved per output; with
-    one thread per output (n = 2048 for a 2^14-gens table) the card is far
-    from full, so latency bounds it.  Design: one thread per output lane
-    keeps its accumulator in registers; it writes its own terms' 8 cached
-    multiples to a global scratch [K*8*4*NL, n] (coalesced across the warp)
-    and reads them back as the digits select them, so nothing is shared
-    between threads and one launch does the whole fold."""
+    H100: latency — one output's ladder is ~1,410 dependent point
+    operations if one thread runs it, and a fold has only n = 2,048
+    (2^14 gens) to 8,192 (2^16) outputs.  Design (csrc/ipa_fold.cu): one
+    warp per output, its terms' multiples in shared memory; lane j sums
+    windows 2j+1 and 2j over the terms, then the warp joins the 32
+    partials by Horner and inverts Z, each field product spread over 8
+    lanes.  Outputs are canonical rows, so the plain version's one-lane
+    ladder gives the same bytes.  Folds of more than MAX_TERMS terms raise
+    ValueError (on every device: one specification)."""
     native.check(src, "src", (None, ROW))
     native.check(base, "base", (None, None))
     k, n = base.shape
     native.check(dig, "dig", (64 * k, n))
+    if not 1 <= k <= MAX_TERMS:
+        raise ValueError(f"ladder_fold: {k} terms, the kernel takes 1.."
+                         f"{MAX_TERMS}")
     lib = native.kernels_for(src, base, dig)
     if lib is None:
         return ladder_fold_plain(src, base, dig)
     out = torch.empty((2, n, ROW), dtype=torch.int32, device=src.device)
     if n == 0:
         return out
-    scratch = torch.empty((k * 8 * 4 * NL, n), dtype=torch.int32,
-                          device=src.device)
     native.launched("ladder_fold", lib.bpg_ladder_fold(
         src.data_ptr(), base.data_ptr(), dig.data_ptr(), k, n,
-        scratch.data_ptr(), out.data_ptr(), native.stream(src)))
+        out.data_ptr(), native.stream(src)))
     return out
 
 
@@ -111,8 +114,10 @@ def affine_rows(pt):
 
 
 def ladder_fold_plain(src, base, dig):
-    """ladder_fold in plain PyTorch: the same op sequence on the same
-    integers, vectorized over lanes."""
+    """ladder_fold in plain PyTorch, vectorized over outputs: the
+    one-thread Straus ladder (64 windows high to low, 4 doublings, then
+    one select-and-add per term).  Its rows are canonical, so they equal
+    the kernel's, whose adds run in another order."""
     if bool(((base < 0) | (base >= src.shape[0])).any()):
         raise ValueError("base: row index outside src")
     if bool(((dig < 0) | (dig > 15)).any()):

@@ -17,7 +17,10 @@ One MSM of k scalar vectors over an n-point source:
            gathered affine rows [x | y | 2d*x*y] (128-byte rows).
   K2       bucket_accumulate_cont: K1 started from a carried pool (the
            round chunks below).
-  K3       bucket_merge: one thread per bucket sums its lanes in order.
+  K3       bucket_merge: a group of G lanes per bucket (G from the pool's
+           lanes per bucket, `merge_shape`), a whole warp per long bucket;
+           lane j sums the bucket's lanes j, j+G, ..., then a shuffle tree
+           (ceil(sub/32) - 1 + 5 dependent adds for a long bucket).
   K4       window_sums: one warp per window, sum_b b*S_b with no scalar
            multiplies: each lane sums four buckets, then a suffix scan and
            a tree reduction across the warp (19 dependent point operations
@@ -102,7 +105,7 @@ NL = fp.NL
 C = 8                     # window width (byte-wise digit recode)
 NB = 1 << (C - 1)         # 128 buckets per window
 W = 32 * 8 // C           # 32 windows per 256-bit scalar
-LANES = 32                # K4: lanes (one warp) per window
+LANES = 32                # a warp: per window (K4), per long bucket (K3)
 BUCKETS_PER_LANE = NB // LANES
 ROW = 32                  # int32 per source row: x | y | t2d | 2 pad = 128 B
 _2D = 2 * _D % _P
@@ -323,6 +326,18 @@ def bucket_accumulate_flat_plain(g, t: int, p: int):
 # ---------------------------------------------------------------------------
 # K3: merge of split buckets
 
+def merge_shape(p: int, m: int):
+    """K3's group width G and long-bucket bound for a pool of p lanes over
+    m buckets: with avg = ceil(p / m), G is the largest power of two <=
+    LANES with 8G <= avg (1 if none), and a bucket of more than 2 avg
+    lanes is long (summed by a whole warp)."""
+    avg = -(-p // m) if m else 0
+    g = 1
+    while g < LANES and 16 * g <= avg:
+        g *= 2
+    return g, 2 * avg
+
+
 def bucket_merge(pool, offs, sub):
     """pool int32 [4, NL, P]; bucket b owns lanes offs[b] .. offs[b] +
     sub[b] - 1 (int32 [M] each) -> int32 [4, NL, M] bucket sums (the
@@ -330,10 +345,14 @@ def bucket_merge(pool, offs, sub):
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_merge_scan_kernel
     (a segmented Hillis-Steele scan read at each bucket's last lane).
-    Bound on the H100: the longest bucket, one thread adding its sub[b]
-    lanes in sequence (a bit-vector bucket splits over ~n/T lanes).
-    Design: a bucket's lanes are contiguous, so one thread per bucket
-    reads them in order — no scan steps, no segment ids."""
+    Bound on the H100: the longest bucket's chain of adds if one thread
+    sums a bucket (a bit-vector bucket splits over ~n/T lanes: 137 on the
+    example's verifier launch).  Design (csrc/msm_kernels.cu): a group of
+    G lanes per bucket, a whole warp per long bucket (merge_shape), the
+    buckets dealt to warps strided so that neighbouring long buckets go
+    to different warps; lane j of a group sums lanes j, j + G, ... in
+    order, then a shuffle tree sums the group's partials, in the order
+    that bucket_merge_plain spells out."""
     native.check(pool, "pool", (4, NL, None))
     native.check(offs, "offs", (None,))
     native.check(sub, "sub", (offs.shape[0],))
@@ -342,28 +361,56 @@ def bucket_merge(pool, offs, sub):
         return bucket_merge_plain(pool, offs, sub)
     m = offs.shape[0]
     out = torch.empty((4, NL, m), dtype=torch.int32, device=pool.device)
+    if m == 0:
+        return out
+    g, lng = merge_shape(pool.shape[2], m)
     native.launched("bucket_merge", lib.bpg_bucket_merge(
         pool.data_ptr(), pool.shape[2], offs.data_ptr(), sub.data_ptr(), m,
-        out.data_ptr(), native.stream(pool)))
+        g, lng, out.data_ptr(), native.stream(pool)))
     return out
 
 
 def bucket_merge_plain(pool, offs, sub):
+    """K3's adds in K3's order, for all buckets at once.  Bucket b sums
+    its lanes L_i = offs[b] + i with g = LANES lanes if it is long, else
+    G (merge_shape): lane j < cnt = min(sub, g) forms Q_j = L_j + L_j+g +
+    L_j+2g + ..., then for d = g/2, .., 2, 1 lane j < d with j + d < cnt
+    sets Q_j += Q_j+d; the bucket is Q_0 (the identity for sub = 0)."""
     if bool(((offs < 0) | (sub < 0) | (offs + sub > pool.shape[2])).any()):
         raise ValueError("offs/sub: lanes outside pool")
     m = offs.shape[0]
     pts = curve.unstack(pool)
-    acc = [c.clone() for c in curve.identity((m,), pool.device)]
-    live = (sub > 0).nonzero().flatten()
-    if live.numel():
-        for a, c in zip(acc, curve.select(pts, offs[live].long())):
-            a[:, live] = c
-    for j in range(1, int(sub.max()) if m else 0):
-        live = (sub > j).nonzero().flatten()
-        res = curve.padd(curve.select(acc, live),
-                         curve.select(pts, (offs[live] + j).long()))
-        for a, r in zip(acc, res):
+    g, lng = merge_shape(pool.shape[2], m)
+    sub = sub.long()
+    width = torch.where(sub > lng, LANES, g)
+    cnt = torch.minimum(sub, width)
+    # the groups' lanes that hold lanes of their bucket, bucket by bucket
+    b = torch.repeat_interleave(torch.arange(m, device=pool.device), cnt)
+    first = torch.cumsum(cnt, 0) - cnt          # bucket b's lane 0
+    j = torch.arange(b.shape[0], device=pool.device) - first[b]
+    lane, step_b = offs.long()[b] + j, width[b]
+    q = list(curve.select(pts, lane))
+
+    def step(live, other):
+        for a, r in zip(q, curve.padd(curve.select(q, live), other)):
             a[:, live] = r
+    r = 1
+    while True:                        # Q_j += L_j+rg for r = 1, 2, ...
+        live = (j + r * step_b < sub[b]).nonzero().flatten()
+        if not live.numel():
+            break
+        step(live, curve.select(pts, lane[live] + r * step_b[live]))
+        r += 1
+    d = LANES // 2
+    while d:                           # Q_j += Q_j+d while j + d < cnt
+        live = ((j < d) & (j + d < cnt[b])).nonzero().flatten()
+        if live.numel():
+            step(live, curve.select(q, live + d))
+        d //= 2
+    acc = [c.clone() for c in curve.identity((m,), pool.device)]
+    full = (cnt > 0).nonzero().flatten()
+    for a, c in zip(acc, curve.select(q, first[full])):
+        a[:, full] = c
     return curve.stack(acc)
 
 

@@ -10,11 +10,11 @@ Phases (one line each; any failure raises and exits non-zero):
      (2^14 gens, 32,770-point table), recorded from one prove + verify of
      it, and K6 (the IPA table-fold ladder) on the same prove's fold
      (16,384 generators folded 16-fold: 2,048 outputs of 16 terms):
-     canonical limbs must be equal (tolerance 0), with times; K4's and
-     K5's registers and spills from the build, and their times as
-     multiples of K1's on the same launch (K4 and K5 are held against
-     their plain versions at k = 9 too, after phase 6 has recorded the
-     stacked merkle32 x 3 launch);
+     canonical limbs must be equal (tolerance 0), with times; K3's, K4's,
+     K5's and K6's registers and spills from the build, and K3's, K4's and
+     K5's times as multiples of K1's on the same launch (K3, K4 and K5 are
+     held against their plain versions at k = 9 too, after phase 6 has
+     recorded the stacked merkle32 x 3 launch);
   3. whole MSMs against the host Pippenger `core.msm.msm_host` at n = 2^10
      (k = 1 and k = 3; random, bit-vector and all-zero vectors, scalars
      >= L; the k = 3 case also in point chunks of 256);
@@ -32,7 +32,9 @@ Phases (one line each; any failure raises and exits non-zero):
   5. K7 (the lane-wise add of the chunk combine) against its plain version
      on merkle32's own chunk window sums recorded from that run, and on
      one wide launch (2^17 lanes of real points); K1's time per entry on
-     merkle32's commitment MSM with and without point chunks;
+     merkle32's commitment MSM with and without point chunks; K6 against
+     its plain version on merkle32's fold recorded from that run (65,536
+     generators folded 16-fold: 8,192 outputs of 16 terms), with times;
   6. the batch path (lang.batch.prove_batch / verify_batch, launch counters
      reset just before it and read just after): the two batch pins of
      tests/port_pins.json (three 16-bit BOUND witnesses on a host table
@@ -221,14 +223,14 @@ def ptxas_usage(log, kernel):
     return "; ".join(lines) or "not in the build log"
 
 
-def check_fold(ipa_fold, src, base, dig):
+def check_fold(ipa_fold, src, base, dig, label):
     """K6 against its plain version on one fold's real inputs."""
     k, n = base.shape
     muls = (n * k * (3 * MULS["madd"] + 4 * MULS["dbl"] + 7)  # multiples
             + n * 63 * 4 * MULS["dbl"]                # doublings after w=63
             + int((dig != 8).sum()) * MULS["padd_cached"]  # digits != 0
             + n * (MULS["inv"] + 4))                  # Z inversion, affine
-    return compare("ladder_fold", "example fold",
+    return compare("ladder_fold", label,
                    lambda: ipa_fold.ladder_fold(src, base, dig),
                    lambda: ipa_fold.ladder_fold_plain(src, base, dig),
                    f"K={k} outputs={n}", muls, (src, base, dig))
@@ -731,16 +733,19 @@ def main() -> int:
         f"{time.time() - t0:.1f} s")
     results = check_kernels(ms, *calls[0], "k=3 commitment launch")
     verifier = check_kernels(ms, *calls[-1], "k=1 verifier launch")
-    for name, kernel in (("K4", "window_sums_kernel"),
-                         ("K5", "horner_kernel")):
+    for name, kernel in (("K3", "bucket_merge_kernel"),
+                         ("K4", "window_sums_kernel"),
+                         ("K5", "horner_kernel"),
+                         ("K6", "ladder_fold_kernel")):
         say(f"ptxas {name} {kernel}: {ptxas_usage(native.BUILD_LOG, kernel)}")
     for label, res in (("k=3 commitment", results),
                        ("k=1 verifier", verifier)):
         k1 = res["bucket_accumulate"][1]
-        say(f"on the example's {label} launch: K4 "
+        say(f"on the example's {label} launch: K3 "
+            f"{res['bucket_merge'][1] / k1:.3f}x K1, K4 "
             f"{res['window_sums'][1] / k1:.3f}x K1, K5 "
             f"{res['horner'][1] / k1:.3f}x K1 (K1 {k1:.3f} ms)")
-    results["ladder_fold"] = check_fold(ipa_fold, *folds[0])
+    results["ladder_fold"] = check_fold(ipa_fold, *folds[0], "example fold")
     ex_call = calls[0]                           # phase 9's example launch
     del calls[:], folds[:]
 
@@ -769,6 +774,7 @@ def main() -> int:
     fused_create, materialize = ipa_fused.create, ipa_fold.materialize
     point_add = ms.point_add
     combines, chunked = [], [0]                  # merkle32's K7 inputs
+    m_folds = []                                 # merkle32's K6 inputs
 
     def count_ipa(transcript, table, w, G_factors, *a, **kw):
         ipa_runs.append([len(G_factors), 0])
@@ -783,6 +789,11 @@ def main() -> int:
         if not calls and n > ms.POINT_CHUNK:
             calls.append((digits, src, n))       # the commitment MSM
         return msm_digits_t(digits, src, n, *a, **kw)
+
+    def record_fold4(src, base, dig):
+        if name == "merkle32" and not m_folds:
+            m_folds.append((src, base, dig))
+        return ladder_fold(src, base, dig)
 
     def record_add(p, q):
         if not combines:
@@ -802,6 +813,7 @@ def main() -> int:
         setattr(obj, name, host_spy(f"{getattr(obj, '__name__', obj)}."
                                     f"{name}", fn))
     ipa_fused.create, ipa_fold.materialize = count_ipa, count_fold
+    ipa_fold.ladder_fold = record_fold4
     ms.msm_digits_t, ms.point_add = record_chunks, record_add
     for name in ms.LAUNCHES:
         ms.LAUNCHES[name] = 0
@@ -853,6 +865,7 @@ def main() -> int:
         launches = dict(ms.LAUNCHES)
     finally:
         ipa_fused.create, ipa_fold.materialize = fused_create, materialize
+        ipa_fold.ladder_fold = ladder_fold
         ms.msm_digits_t, ms.point_add = msm_digits_t, point_add
         for obj, name, fn in saved:
             setattr(obj, name, fn)
@@ -867,7 +880,9 @@ def main() -> int:
     say(f"main path launches: {launches}")
 
     # 5. K7 on merkle32's chunk combine and on a wide launch; K1 per entry
-    #    with and without point chunks on merkle32's commitment MSM
+    #    with and without point chunks on merkle32's commitment MSM; K6 on
+    #    merkle32's fold
+    check_fold(ipa_fold, *m_folds[0], "merkle32 fold")
     results["point_add"] = check_point_add(ms, *combines[0],
                                            "merkle32 commitment combine")
     m_digits, m_src, m_n = calls[0]
@@ -884,10 +899,10 @@ def main() -> int:
 
     # 6. the batch path; 7. K2 and the round chunks; 8. ms per witness
     batch_launches, k2_in, stacked, rows_batch = batch_path(pins, ms)
-    s_digits, s_src, s_n = stacked               # K4 and K5 at k = 9
+    s_digits, s_src, s_n = stacked               # K3, K4 and K5 at k = 9
     check_kernels(ms, s_digits[:, :ms.POINT_CHUNK], s_src, s_n,
                   "merkle32 x 3 stacked k=9 launch, first point chunk",
-                  only=("window_sums", "horner"))
+                  only=("bucket_merge", "window_sums", "horner"))
     results["bucket_accumulate_cont"] = check_cont(ms, *k2_in)
     round_chunk_times(ms, *stacked)
     bound64_per_witness(device)

@@ -1,18 +1,22 @@
-"""Time the MSM's K4 (window_sums) and K5 (horner) kernels on one NVIDIA GPU
-for the port package of a given checkout, so that two checkouts can be
-compared in turns on one card:
+"""Time the MSM's K3 (bucket_merge), K4 (window_sums) and K5 (horner)
+kernels and the fold's K6 (ladder_fold) on one NVIDIA GPU for the port
+package of a given checkout, so that two checkouts can be compared in turns
+on one card:
 
     python3 scripts/time_scans.py [--root DIR] [--label NAME]
 
 --root is the directory holding `bulletproof_gadgets_tpu_torch` (default:
 this checkout); its kernels are built there at first use.  The inputs are
-made from a seed: the bucket sums of an MSM of k random scalar vectors
-over a 2,050-point generator table (k = 1, 3, 9: the verifier's, the
-commitments' and three stacked proofs' launches), the same in every
-checkout.  Both kernels are held against their plain versions (tolerance
-0), then timed with CUDA events (mean of 20 launches after a warm-up).
-Prints one JSON line: the label, the card's name and power limit, and the
-ms of each kernel at each k.
+made from a seed, the same in every checkout: the bucket pool of an MSM of
+k scalar vectors over a 2,050-point generator table (k = 1, 3, 9: the
+verifier's, the commitments' and three stacked proofs' launches; the first
+vector is a bit vector, whose one live bucket splits over the most pool
+lanes, as a commitment's does), and folds of 2,048 and 8,192 outputs of 16
+terms (the fold of a 2^14- and of a 2^16-gens table) with random table rows
+and random windows.  Each kernel is held against its plain version
+(tolerance 0), then timed with CUDA events (mean of 20 launches after a
+warm-up).  Prints one JSON line: the label, the card's name and power
+limit, and the ms of each kernel at each shape.
 """
 import argparse
 import json
@@ -25,6 +29,8 @@ import numpy as np
 
 N_GENS = 1024
 KS = (1, 3, 9)
+FOLD_OUTPUTS = (2048, 8192)
+FOLD_TERMS = 16
 REPS = 20
 
 
@@ -54,6 +60,7 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from bulletproof_gadgets_tpu_torch.core.gens import BulletproofGens
     from bulletproof_gadgets_tpu_torch.core.scalar import L
+    from bulletproof_gadgets_tpu_torch.ops import ipa_fold
     from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
 
     dev = torch.device("cuda")
@@ -64,19 +71,37 @@ def main() -> int:
     r = random.Random(7)
     res = {}
     for k in KS:
-        vecs = [[r.randrange(L) for _ in range(n)] for _ in range(k)]
+        vecs = [[r.randrange(2) for _ in range(n)]] + [
+            [r.randrange(L) for _ in range(n)] for _ in range(k - 1)]
         digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
         d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
         idx, offs, sub = ms.plan(d.to(dev), n)
-        buckets = ms.bucket_merge(ms.bucket_accumulate(src, idx), offs, sub)
+        pool = ms.bucket_accumulate(src, idx)
+        buckets = ms.bucket_merge(pool, offs, sub)
         ws = ms.window_sums(buckets)
-        if not (torch.equal(ws, ms.window_sums_plain(buckets)) and
-                torch.equal(ms.horner(ws, k), ms.horner_plain(ws, k))):
+        if not (torch.equal(buckets, ms.bucket_merge_plain(pool, offs, sub))
+                and torch.equal(ws, ms.window_sums_plain(buckets))
+                and torch.equal(ms.horner(ws, k), ms.horner_plain(ws, k))):
             raise AssertionError(f"k={k}: a kernel differs from its plain "
                                  "version")
         res[f"k={k}"] = {
+            "max_sub": int(sub.max()),
+            "bucket_merge_ms": timed(lambda: ms.bucket_merge(pool, offs, sub)),
             "window_sums_ms": timed(lambda: ms.window_sums(buckets)),
             "horner_ms": timed(lambda: ms.horner(ws, k))}
+    rng = np.random.default_rng(9)
+    for outputs in FOLD_OUTPUTS:
+        base = torch.from_numpy(rng.integers(
+            0, 2 * n, (FOLD_TERMS, outputs), dtype=np.int32)).to(dev)
+        dig = torch.from_numpy(rng.integers(
+            0, 16, (64 * FOLD_TERMS, outputs), dtype=np.int32)).to(dev)
+        if not torch.equal(ipa_fold.ladder_fold(src, base, dig),
+                           ipa_fold.ladder_fold_plain(src, base, dig)):
+            raise AssertionError(f"fold of {outputs} outputs: K6 differs "
+                                 "from its plain version")
+        res[f"fold outputs={outputs}"] = {
+            "ladder_fold_ms": timed(
+                lambda: ipa_fold.ladder_fold(src, base, dig))}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()

@@ -2,9 +2,9 @@
 
 Runs interval arithmetic over the exact op sequences of ops/curve.madd,
 padd and dbl, and of the table fold (ops/ipa_fold, csrc/ipa_fold.cu:
-multiples, cached forms and their negations, padd_cached, the inversion's
-squarings) — the same functions, given an interval field — and proves, for
-any input values:
+multiples, cached forms and their negations, padd_cached, the tree's
+unified adds, the inversion's squarings) — the same functions, given an
+interval field — and proves, for any input values:
   * no int64 overflows: each 32x32 -> 64-bit product (times 2 for odd*odd
     limbs, times 19 for wrapped columns in the plain version), each column
     sum (its sum of |terms| bounds d_k, 19*w_k, h_k = d_k + 19*w_k and
@@ -163,7 +163,8 @@ def test_fold_sequences_keep_the_bounds():
     """The fold ladder's sequences: the multiples 1P..8P of a canonical
     affine row by dbl and madd, their cached forms (lazy y - x, y + x, 2z;
     carried 2d*t), the negated cached forms, the identity's cached form,
-    padd_cached into the accumulator, and the inversion's products of
+    padd_cached into the accumulator, the unified adds and doublings of
+    the lanes' partials in the fold tree, and the inversion's products of
     carried values.  The carried bound reaches a fixed point, every int64
     column sum stays under 2^62, and carried limbs and their negations are
     inside canonical()'s input range."""
@@ -183,6 +184,7 @@ def test_fold_sequences_keep_the_bounds():
                   curve.neg_cached(first, F=F), ident):
             cached = _hull_pt(cached, c)
         new = _hull_pt(new, curve.padd_cached(new, cached, F=F))
+        new = _hull_pt(new, curve.padd(new, new, F=F))     # fold tree
         new = tuple(_hull(c, F.mul(c, c)) for c in new)    # inversion
         if new == state:
             break

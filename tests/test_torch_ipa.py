@@ -222,6 +222,21 @@ def test_materialize_matches_host_group_law():
     assert (got[:, 30:] == 0).all()
 
 
+def test_ladder_fold_rejects_too_many_terms():
+    """Folds of more than MAX_TERMS terms raise on the CPU too (the kernel's
+    limit is part of the specification), and fewer do not."""
+    src = torch.from_numpy(ms.prep_source(_table(4)))
+    for k, ok in ((ipa_fold.MAX_TERMS + 1, False), (1, True)):
+        base = torch.zeros((k, 2), dtype=torch.int32)
+        dig = torch.full((64 * k, 2), 8, dtype=torch.int32)
+        if ok:
+            assert ipa_fold.ladder_fold(src, base, dig).shape == (2, 2,
+                                                                  ms.ROW)
+        else:
+            with pytest.raises(ValueError):
+                ipa_fold.ladder_fold(src, base, dig)
+
+
 # -- whole arguments ---------------------------------------------------------
 
 @pytest.mark.parametrize("n,fold_at,folds", [

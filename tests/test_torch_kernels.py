@@ -135,10 +135,11 @@ def test_wrapper_rejects_bad_tensors(stage_inputs):
         ms.bucket_accumulate(src.cpu(), stage_inputs["idx"])
 
 
-def test_ladder_fold_equals_plain(cuda, monkeypatch):
-    """K6 on a small fold (n_t = 256, d = 4: 2 x 16 outputs of 16 terms)
+@pytest.mark.parametrize("n_t,d", [(256, 4), (148, 2), (208, 4)])
+def test_ladder_fold_equals_plain(cuda, monkeypatch, n_t, d):
+    """K6 on small folds (n_t = 256, d = 4: 2 x 16 outputs of 16 terms;
+    148 / 2: 2 x 37 of 4; 208 / 4: 2 x 13 of 16, odd output counts)
     against its plain version on the card, through materialize."""
-    n_t, d = 256, 4
     gens = BulletproofGens(n_t)
     pc = PedersenGens.default()
     pts = list(gens.G(n_t)) + list(gens.H(n_t)) + [pc.B, pc.B_blinding]
@@ -153,6 +154,59 @@ def test_ladder_fold_equals_plain(cuda, monkeypatch):
     monkeypatch.setattr(ipa_fold, "ladder_fold", ipa_fold.ladder_fold_plain)
     want = ipa_fold.materialize(src, gc, hc, n_t, d, len(pts))
     assert got.is_cuda and torch.equal(got, want)   # canonical rows, exact
+
+
+def test_ladder_fold_rejects_too_many_terms(cuda):
+    """K6 takes folds of at most MAX_TERMS terms: the wrapper raises for
+    more, and launches nothing."""
+    k = 2 * ipa_fold.MAX_TERMS
+    src = torch.zeros((1, ms.ROW), dtype=torch.int32, device=cuda)
+    base = torch.zeros((k, 3), dtype=torch.int32, device=cuda)
+    dig = torch.full((64 * k, 3), 8, dtype=torch.int32, device=cuda)
+    before = ms.LAUNCHES["ladder_fold"]
+    with pytest.raises(ValueError):
+        ipa_fold.ladder_fold(src, base, dig)
+    assert ms.LAUNCHES["ladder_fold"] == before
+
+
+# K3 on buckets of these lane counts (the strides' and tree's edges), three
+# times over, among empty buckets and unused lanes that set its group width
+# G (ops/msm_serial.merge_shape): pool lanes per bucket -> G
+MERGE_SUBS = [0, 1, 2, 31, 32, 33, 64, 137] * 3
+MERGE_AVG = {1: 4, 4: 40, 32: 300}
+
+
+@pytest.mark.parametrize("g", sorted(MERGE_AVG))
+def test_bucket_merge_equals_plain_on_split_buckets(stage_inputs, g):
+    """K3 against its plain version (tolerance 0) on the k=3 MSM's pool
+    cut into buckets of MERGE_SUBS lanes, out of order with gaps between
+    them, among empty buckets at random offsets, with group width G = g
+    (long buckets: 31-137 at G = 1, 137 at G = 4, none at G = 32)
+    and more than one block."""
+    r = random.Random(8 + g)
+    order = list(range(len(MERGE_SUBS)))
+    r.shuffle(order)
+    offs, subs, lo = [0] * len(MERGE_SUBS), list(MERGE_SUBS), 0
+    for b in order:
+        lo += r.randrange(1, 4)
+        offs[b] = lo
+        lo += subs[b]
+    p = max(lo, MERGE_AVG[g] * len(subs))
+    for _ in range(-(-p // MERGE_AVG[g]) - len(subs)):
+        at = r.randrange(len(subs) + 1)
+        offs.insert(at, r.randrange(p + 1))
+        subs.insert(at, 0)
+    assert ms.merge_shape(p, len(subs))[0] == g
+    pool = stage_inputs["pool"][:, :, :p].contiguous()
+    assert pool.shape[2] == p
+    offs = torch.tensor(offs, dtype=torch.int32, device=pool.device)
+    sub = torch.tensor(subs, dtype=torch.int32, device=pool.device)
+    before = ms.LAUNCHES["bucket_merge"]
+    got = ms.bucket_merge(pool, offs, sub)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["bucket_merge"] == before + 1
+    assert got.is_cuda and torch.equal(got, ms.bucket_merge_plain(pool, offs,
+                                                                  sub))
 
 
 def test_point_add_equals_plain(stage_inputs):

@@ -1,8 +1,10 @@
-"""The MSM's window sums (K4) and Horner (K5) plain versions on the CPU, in
-the order of adds that the CUDA kernels follow (ops/msm_serial): each
-window against sum_j (j+1) * S_j formed with the host group law, on windows
-whose set buckets sit at the edges of the kernel's four-bucket lane
-segments; the same buckets against the JAX package's window sums; and
+"""The MSM's bucket merge (K3), window sums (K4) and Horner (K5) plain
+versions on the CPU, in the order of adds that the CUDA kernels follow
+(ops/msm_serial): bucket sums against sums formed with the host group law,
+on buckets whose lane counts sit at the edges of the kernel's 32-lane
+strides and shuffle tree; each window against sum_j (j+1) * S_j, on
+windows whose set buckets sit at the edges of the kernel's four-bucket
+lane segments; the same buckets against the JAX package's window sums; and
 Horner on the identity.  Canonical affine values, exact.
 """
 import random
@@ -93,3 +95,56 @@ def test_horner_plain_on_identity(k):
     ws = curve.stack(curve.identity((k * ms.W,), torch.device("cpu")))
     got = curve.canonical_affine(curve.unstack(ms.horner(ws, k)))
     assert got == [(0, 1)] * k
+
+
+# K3: lanes per bucket, at the edges of the kernel's strides and tree
+SUBS = [0, 1, 2, 31, 32, 33, 64, 137]
+# pool lanes per bucket that make merge_shape give G = 1, 4, 32 (so 31-137
+# are long at G = 1, 137 at G = 4, none at G = 32)
+AVG = {1: 4, 4: 40, 32: 300}
+
+
+def split_buckets(subs, g, r):
+    """(offs, sub, p): buckets of `subs` lanes laid out in a pool of p lanes
+    out of order and with gaps between them (non-contiguous offs), among
+    empty buckets and unused lanes so that merge_shape(p, len(sub)) gives
+    G = g."""
+    order = list(range(len(subs)))
+    r.shuffle(order)
+    offs, lo = [0] * len(subs), 0
+    for b in order:
+        lo += r.randrange(1, 4)                 # a gap of unused lanes
+        offs[b] = lo
+        lo += subs[b]
+    p = max(lo, AVG[g] * len(subs))
+    offs, subs = list(offs), list(subs)
+    for _ in range(-(-p // AVG[g]) - len(subs)):   # empty buckets
+        at = r.randrange(len(subs) + 1)
+        offs.insert(at, r.randrange(p + 1))
+        subs.insert(at, 0)
+    return offs, subs, p
+
+
+@pytest.mark.parametrize("g", sorted(AVG))
+def test_bucket_merge_plain_matches_host(g):
+    """Buckets of SUBS lanes each (split_buckets), each lane a random table
+    point or its negation: every bucket equals the host sum of its lanes,
+    with K3's group width G = g."""
+    pts = list(BulletproofGens(N).G(N))
+    table = pts + [-p for p in pts]
+    r = random.Random(12 + g)
+    offs, subs, p = split_buckets(SUBS, g, r)
+    assert ms.merge_shape(p, len(subs))[0] == g
+    rows = [r.randrange(2 * N) for _ in range(p)]
+    src = torch.from_numpy(ms.prep_source(pts))
+    pool = ms.bucket_accumulate(src, torch.tensor([rows], dtype=torch.int32))
+    got = curve.canonical_affine(curve.unstack(ms.bucket_merge(
+        pool, torch.tensor(offs, dtype=torch.int32),
+        torch.tensor(subs, dtype=torch.int32))))
+    want = []
+    for o, n_sub in zip(offs, subs):
+        acc = RistrettoPoint.identity()
+        for row in rows[o:o + n_sub]:
+            acc = acc + table[row]
+        want.append(_affine(acc))
+    assert got == want
