@@ -1,9 +1,11 @@
 // F_p (p = 2^255 - 19) and extended twisted-Edwards point functions shared
-// by every kernel of this package.  Plain-PyTorch twins: ops/fp.py (field)
-// and ops/curve.py (points); both compute the same integers, so kernel and
-// plain results agree limb for limb.  Every function is inline or static,
-// so each translation unit that includes this header gets its own copies
-// and the units link into one library without clashes.
+// by the kernels of this package (K1, K2 and K8-K10 add on field32.cuh's
+// radix-2^32 core instead, and use only the limb layout and loads here).
+// Plain-PyTorch twins: ops/fp.py (field) and ops/curve.py (points); both
+// compute the same integers, so kernel and plain results agree limb for
+// limb.  Every function is inline or static, so each translation unit that
+// includes this header gets its own copies and the units link into one
+// library without clashes.
 //
 // Layout: 10 signed int32 limbs, radix 2^25.5 (ref10): limb i weighs 2^S[i],
 // S = 0, 26, 51, 77, 102, 128, 153, 179, 204, 230; widths 26, 25, 26, ...

@@ -6,6 +6,8 @@
 // ctypes.  Each launcher runs on the given stream, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).
 //
+// K1, K2 and K8-K10 add in radix 2^32 (field32.cuh) and write canonical
+// limbs; the other kernels use field.cuh's 10-limb core.
 // Point arrays use the [4, 10, n] int32 layout of field.cuh; source rows
 // are int32 [S, 32]: x limbs 0..9, y 10..19, t2d = x*y*2d 20..29, 2 pad.
 // Gathered coordinates (K8-K10) hold the same 30 limbs per slot, limb-major:
@@ -14,27 +16,36 @@
 #include <stdint.h>
 
 #include "field.cuh"
+#include "field32.cuh"
 
 using namespace bpg;
 
 namespace {
 
 constexpr int kThreads = 128;
+// K1, K2 and K8-K10 ask for 5 resident blocks per SM: at most 96
+// registers a thread (what K1 takes unbounded), so that the ~556 blocks of
+// a ~71k-lane pool (msm_serial._LANE_TARGET) run in one wave of 660.
+constexpr int kAccumulateBlocksPerSM = 5;
 
 inline int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // K1 (kCarry false): lane p accumulates the rows idx[0..T-1, p] by mixed
 // addition, from the identity.  K2 (kCarry true): the same T adds, started
-// from lane p of acc_in (the pool of the earlier round chunks).
+// from lane p of acc_in (the pool of the earlier round chunks, canonical).
+// The adds run on field32.cuh's radix-2^32 core: the row's canonical limbs
+// are converted once per round, the accumulator once per lane on the way
+// in (K2) and out; the pool is written as canonical limbs.
 template <bool kCarry>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kAccumulateBlocksPerSM)
 bucket_accumulate_kernel(const int32_t* __restrict__ src,
                          const int32_t* __restrict__ idx, int T, int P,
                          const int32_t* __restrict__ acc_in,
                          int32_t* __restrict__ out) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P) return;
-  ge acc = kCarry ? ge_load(acc_in, P, lane) : ge_identity();
+  ge8 acc =
+      kCarry ? ge8_from_limbs(ge_load(acc_in, P, lane)) : ge8_identity();
   for (int t = 0; t < T; t++) {
     const int64_t row = idx[(int64_t)t * P + lane];
     const int4* r = reinterpret_cast<const int4*>(src + row * 32);
@@ -54,9 +65,10 @@ bucket_accumulate_kernel(const int32_t* __restrict__ src,
       y.v[i] = w[10 + i];
       t2d.v[i] = w[20 + i];
     }
-    acc = ge_madd(acc, x, y, t2d);
+    acc = ge8_madd(acc, fe8_from_limbs(x), fe8_from_limbs(y),
+                   fe8_from_limbs(t2d));
   }
-  ge_store(out, P, lane, acc);
+  ge_store(out, P, lane, ge8_to_canonical_limbs(acc));
 }
 
 // K8 (cols, kCarry false), K9 (cols, kCarry true) and K10 (flat): K1's
@@ -65,15 +77,16 @@ bucket_accumulate_kernel(const int32_t* __restrict__ src,
 // g[t * round_stride + l * limb_stride + p]: consecutive lanes read
 // consecutive addresses, so each of a round's 30 loads is coalesced across
 // the warp (K1 instead reads one scattered 128-byte row per lane).  Bound on
-// the H100: the larger of 7 field muls (700 32x32->64 products, ~42 ps at
-// the int32 multiply rate) per live slot and 120 bytes of coordinates (~36
-// ps at 3.35 TB/s) per slot read once; the two are of one size, so the
-// design reads each byte once, coalesced, keeps K1's thread per lane with
-// the accumulator in registers for all T rounds, and leaves the random
-// access to the gather pass before it.
+// the H100: the larger of 7 field muls (560 32x32->64 products in
+// field32.cuh's core, ~34 ps at the int32 multiply rate) per live slot and
+// 120 bytes of coordinates (~36 ps at 3.35 TB/s) per slot read once; the
+// two are of one size, so the design reads each byte once, coalesced, keeps
+// K1's thread per lane with the accumulator in registers for all T rounds
+// (K1's radix-2^32 adds), and leaves the random access to the gather pass
+// before it.
 // Offsets are int64: a flat gather of a large MSM passes 2^31 elements.
 template <bool kCarry>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kAccumulateBlocksPerSM)
 bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
                                int64_t round_stride, int64_t limb_stride,
                                int64_t T, int64_t P,
@@ -81,7 +94,8 @@ bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
                                int32_t* __restrict__ out) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P) return;
-  ge acc = kCarry ? ge_load(acc_in, P, lane) : ge_identity();
+  ge8 acc =
+      kCarry ? ge8_from_limbs(ge_load(acc_in, P, lane)) : ge8_identity();
   const int32_t* col = g + lane;
   for (int64_t t = 0; t < T; t++, col += round_stride) {
     const int32_t* q = col;
@@ -92,9 +106,10 @@ bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
     for (int i = 0; i < 10; i++, q += limb_stride) y.v[i] = __ldg(q);
 #pragma unroll
     for (int i = 0; i < 10; i++, q += limb_stride) t2d.v[i] = __ldg(q);
-    acc = ge_madd(acc, x, y, t2d);
+    acc = ge8_madd(acc, fe8_from_limbs(x), fe8_from_limbs(y),
+                   fe8_from_limbs(t2d));
   }
-  ge_store(out, P, lane, acc);
+  ge_store(out, P, lane, ge8_to_canonical_limbs(acc));
 }
 
 // K3: bucket sums, replacing

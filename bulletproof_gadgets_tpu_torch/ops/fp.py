@@ -25,6 +25,9 @@ sustains itself.  Right shifts of negative int64 values are arithmetic
 
 Tensors here are int64; the kernels store the same limbs as int32 and
 compute the same integers, so plain and kernel results agree limb for limb.
+The bucket accumulation (K1, K2, K8-K10) adds in radix 2^32 instead
+(csrc/field32.cuh) and shares only values with this module: it writes
+canonical limbs, and its plain versions apply `canonical` to match.
 """
 import functools
 

@@ -14,7 +14,8 @@ One MSM of k scalar vectors over an n-point source:
            one bucket).  `idx_rows` gathers rounds t0..t1 of idx [T, P]
            from the sorted stream.
   K1       bucket_accumulate: one thread per pool lane, T mixed adds of
-           gathered affine rows [x | y | 2d*x*y] (128-byte rows).
+           gathered affine rows [x | y | 2d*x*y] (128-byte rows), in
+           radix 2^32 (csrc/field32.cuh); canonical limbs out.
   K2       bucket_accumulate_cont: K1 started from a carried pool (the
            round chunks below).
   K3       bucket_merge: a group of G lanes per bucket (G from the pool's
@@ -135,11 +136,13 @@ def bucket_accumulate(src, idx):
     lane) -> int32 [4, NL, P] extended sums, lane p = sum_t row idx[t, p].
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel_rows.
-    Bound on the H100: integer multiplies (7 field muls of 100 32x32->64
-    products per entry); the gather moves 128 B per entry.  Design: one
-    thread per lane keeps its accumulator in registers for all T rounds;
-    idx[t, :] is read coalesced across the warp and each row with eight
-    16-byte loads."""
+    Bound on the H100: integer multiplies (7 field muls of 80 32x32->64
+    products per entry: 64 for the product, 16 for its fold); the gather
+    moves 128 B per entry.  Design: one thread per lane keeps its
+    accumulator in registers for all T rounds; idx[t, :] is read coalesced
+    across the warp and each row with eight 16-byte loads; the adds run in
+    radix 2^32 with PTX carry chains (csrc/field32.cuh), and the pool is
+    written as canonical limbs."""
     native.check(src, "src", (None, ROW))
     native.check(idx, "idx", (None, None))
     lib = native.kernels_for(src, idx)
@@ -170,11 +173,24 @@ def _accumulate_plain(src, idx, acc):
 
 def _madd_rounds(acc, rounds):
     """acc plus each round's affine columns ([>= 3*NL, P]: x | y | t2d
-    limbs), by mixed addition in round order -> int32 [4, NL, P]."""
+    limbs), by mixed addition in round order -> int32 [4, NL, P], the
+    canonical limbs of each coordinate (the kernels' output rule: they add
+    in radix 2^32, csrc/field32.cuh, so only values are shared)."""
     for g in rounds:
         g = g.to(torch.int64)
         acc = curve.madd(acc, (g[0:NL], g[NL:2 * NL], g[2 * NL:3 * NL]))
-    return curve.stack(acc)
+    return curve.stack(tuple(fp.canonical(c) for c in acc))
+
+
+def _carried_pool(acc):
+    """A pool to carry on from (K2, K9): int32 [4, NL, P] limbs in
+    [0, 2^w), as K1, K2 and K8-K10 write them; the kernels read it by
+    shifts (csrc/field32.cuh fe8_from_limbs), so other limbs raise here."""
+    top = fp.const([1 << w for w in fp.W], acc[0])
+    if bool(((acc < 0) | (acc >= top)).any()):
+        raise ValueError("acc: limbs outside [0, 2^w): not a pool written "
+                         "by K1, K2 or K8-K10")
+    return curve.unstack(acc)
 
 
 # ---------------------------------------------------------------------------
@@ -188,11 +204,12 @@ def bucket_accumulate_cont(src, idx, acc):
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:
     _bucket_kernel_rows_cont.  Bound on the H100: K1's, integer multiplies
-    (7 field muls of 100 32x32->64 products per entry), plus the pool read
+    (7 field muls of 80 32x32->64 products per entry), plus the pool read
     and written once (2 x 160 B per lane).  Design: K1's body (one thread
     per lane, the accumulator in registers for the chunk's rounds) with the
     accumulator loaded from acc instead of set to the identity; its own C
-    entry and launch counter."""
+    entry and launch counter.  acc's limbs must lie in [0, 2^w), as K1, K2
+    and K8-K10 write them (the plain version raises otherwise)."""
     native.check(src, "src", (None, ROW))
     native.check(idx, "idx", (None, None))
     native.check(acc, "acc", (4, NL, idx.shape[1]))
@@ -211,7 +228,7 @@ def bucket_accumulate_cont(src, idx, acc):
 
 
 def bucket_accumulate_cont_plain(src, idx, acc):
-    return _accumulate_plain(src, idx, curve.unstack(acc))
+    return _accumulate_plain(src, idx, _carried_pool(acc))
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +258,7 @@ def bucket_accumulate_cols(g):
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel.
     Bound on the H100: the larger of the integer multiplies (7 field muls
-    of 100 32x32->64 products per live entry) and 120 B of gathered
+    of 80 32x32->64 products per live entry) and 120 B of gathered
     coordinates per slot read once, two costs of one size.  Design: one
     thread per lane, the accumulator in registers for all T rounds; limb l
     of round t is g[t, l, p], so the 30 loads of a round are each
@@ -273,7 +290,7 @@ def bucket_accumulate_cols_cont(g, acc):
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel_cont.
     Bound on the H100: K8's, plus the pool read and written once (2 x 160
     B per lane).  Design: K8's body with the accumulator loaded from acc;
-    its own C entry and launch counter."""
+    its own C entry and launch counter.  acc as for K2."""
     native.check(g, "g", (None, 3 * NL, None))
     native.check(acc, "acc", (4, NL, g.shape[2]))
     lib = native.kernels_for(g, acc)
@@ -291,7 +308,7 @@ def bucket_accumulate_cols_cont(g, acc):
 
 
 def bucket_accumulate_cols_cont_plain(g, acc):
-    return _madd_rounds(curve.unstack(acc), g.unbind(0))
+    return _madd_rounds(_carried_pool(acc), g.unbind(0))
 
 
 def bucket_accumulate_flat(g, t: int, p: int):
@@ -299,11 +316,11 @@ def bucket_accumulate_flat(g, t: int, p: int):
     -> int32 [4, NL, p], lane j = sum over rounds r of column r*p + j.
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel2d
-    (one round per grid step).  Bound on the H100: K8's (7 field muls per
-    live entry, 120 B per slot read once).  Design: K8's body with round
-    stride p and limb stride t*p (int64 offsets: the flat gather of a
-    large MSM passes 2^31 elements), so every load is still coalesced
-    across the warp; one launch runs all t rounds."""
+    (one round per grid step).  Bound on the H100: K8's (7 field muls of
+    80 products per live entry, 120 B per slot read once).  Design: K8's
+    body with round stride p and limb stride t*p (int64 offsets: the flat
+    gather of a large MSM passes 2^31 elements), so every load is still
+    coalesced across the warp; one launch runs all t rounds."""
     if t < 0 or p < 0:
         raise ValueError(f"rounds {t} / lanes {p}: must not be negative")
     native.check(g, "g", (3 * NL, t * p))

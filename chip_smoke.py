@@ -10,11 +10,15 @@ Phases (one line each; any failure raises and exits non-zero):
      (2^14 gens, 32,770-point table), recorded from one prove + verify of
      it, and K6 (the IPA table-fold ladder) on the same prove's fold
      (16,384 generators folded 16-fold: 2,048 outputs of 16 terms):
-     canonical limbs must be equal (tolerance 0), with times; K3's, K4's,
-     K5's and K6's registers and spills from the build, and K3's, K4's and
-     K5's times as multiples of K1's on the same launch (K3, K4 and K5 are
-     held against their plain versions at k = 9 too, after phase 6 has
-     recorded the stacked merkle32 x 3 launch);
+     canonical limbs must be equal (tolerance 0), with times; K1, K2, K8,
+     K9 and K10 also on crafted rows and carried pools whose coordinates
+     sit at the edges of their radix-2^32 core (EDGE_VALUES) and on 2^16
+     seeded random lanes x 8 rounds, each against its plain version and
+     K8/K10 against K1 (K9 against K2); K1-K6's and K8-K10's registers and
+     spills from the build, and K3's, K4's and K5's times as multiples of
+     K1's on the same launch (K3, K4 and K5 are held against their plain
+     versions at k = 9 too, after phase 6 has recorded the stacked
+     merkle32 x 3 launch);
   3. whole MSMs against the host Pippenger `core.msm.msm_host` at n = 2^10
      (k = 1 and k = 3; random, bit-vector and all-zero vectors, scalars
      >= L; the k = 3 case also in point chunks of 256);
@@ -66,10 +70,11 @@ Phases (one line each; any failure raises and exits non-zero):
      read after it (cols must launch K8 and K9 and no K1/K2; flat K10 and
      no K1/K2/K8/K9).
 Then the card's name and power limit, one JSON line of per-kernel results
-(with each kernel's bound: the larger of its products over the card's
-int32 multiply rate and its bytes over the memory rate; launches are the
-single-proof path's, the batch path's and the two layout runs' together),
-and the last line {"ok": true, "device": {...}}.
+(with each kernel's bound: the larger of its products, PRODUCTS_PER_MUL
+a field mul, over the card's int32 multiply rate and its bytes over the
+memory rate; launches are the single-proof path's, the batch path's and
+the two layout runs' together), and the last line {"ok": true, "device":
+{...}}.
 """
 import hashlib
 import json
@@ -117,9 +122,20 @@ IPA_RUNS = {"bound16": [], "less_than": [[512, 0]], "example": [[16384, 1]],
 # 132 x 1.98 GHz is the data sheet's 67 TFLOP/s fp32); HBM3 at 3.35 TB/s.
 INT32_MUL_PER_S = 64 * 132 * 1.98e9
 BYTES_PER_S = 3.35e12
-PRODUCTS_PER_MUL = 100          # one field mul: 10 x 10 limb products
+# the cheapest field product in the package: csrc/field32.cuh's fe8_mul,
+# 8 x 8 word products and 16 for the fold of the high half x 38 (field.cuh's
+# 10-limb fe_mul forms 10 x 10; its bound is printed beside for comparison)
+PRODUCTS_PER_MUL = 80
+PRODUCTS_PER_MUL_10LIMB = 100
 MULS = {"madd": 7, "padd": 9, "dbl": 8, "padd_cached": 8, "inv": 265}
 BOUND64_BATCH = 8               # witnesses of phase 8's batch
+
+
+# field values at the edges of the bucket accumulation's radix-2^32 core
+# (csrc/field32.cuh): words all ones or all zeros, the wrap of 2^256 = 38
+FIELD_P = 2**255 - 19
+EDGE_VALUES = (0, 1, 19, 38, FIELD_P - 1, FIELD_P - 38, 2**224 - 1,
+               2**254 - 1, 2**254 + 1, 2**32 - 1)
 
 
 def say(msg):
@@ -140,12 +156,12 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
-def bound(field_muls, tensors):
+def bound(field_muls, tensors, products=PRODUCTS_PER_MUL):
     """(bound_ms, bound_by): the larger of the field muls' 32x32->64
     products over the int32 multiply rate and the bytes of the given
     tensors (inputs read once, outputs written once) over the memory
     rate."""
-    ops_s = field_muls * PRODUCTS_PER_MUL / INT32_MUL_PER_S
+    ops_s = field_muls * products / INT32_MUL_PER_S
     bytes_s = sum(t.numel() * t.element_size() for t in tensors) / BYTES_PER_S
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
@@ -163,9 +179,12 @@ def compare(name, label, kern, plain, shape, muls, tensors):
         raise AssertionError(f"{name} ({label}): kernel != plain, max abs "
                              f"err {err}")
     b_ms, b_by = bound(muls, list(tensors) + [out_k])
+    b10_ms, b10_by = bound(muls, list(tensors) + [out_k],
+                           PRODUCTS_PER_MUL_10LIMB)
     say(f"kernel {name} [{label}, {shape}]: equal to plain (tolerance 0, "
         f"max abs err {err}); {t_k:.3f} ms vs plain {t_p:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by})")
+        f"{b_ms:.4f} ms ({b_by}; at 100 products per mul {b10_ms:.4f} ms, "
+        f"{b10_by})")
     return err, t_k, t_p, b_ms, b_by
 
 
@@ -209,6 +228,86 @@ def check_kernels(ms, digits, src, n, label, only=None):
     }
     return {name: compare(name, label, *st) for name, st in stages.items()
             if only is None or name in only}
+
+
+def edge_inputs(device, lanes=None, rounds=8, seed=0):
+    """Crafted inputs of the bucket accumulation (K1, K2, K8-K10): (src
+    int32 [S, ROW], idx int32 [rounds, P], acc int32 [4, NL, P]).  The rows'
+    x, y, t2d need not be curve points (the adds are the same field
+    arithmetic either way).  lanes None: every (x, y, t2d) in EDGE_VALUES^3
+    as a row (1,000 rows), lane p's round t reading row (p + 337 t) mod
+    1,000, and the pool's coordinates edge values (lane p: the digits of
+    p, and 7p, in base 10); else `lanes` lanes over 4,096 rows, rows, pool
+    limbs and idx uniform from the seed (limb i in [0, 2^w))."""
+    import torch
+    from bulletproof_gadgets_tpu_torch.ops import fp
+    nl = fp.NL
+    if lanes is None:
+        e = EDGE_VALUES
+        trip = [(x, y, t) for x in e for y in e for t in e]
+        cols = [fp.ints_to_limbs([v[c] for v in trip]) for c in range(3)]
+        p = len(trip)
+        lane = np.arange(p)
+        idx = (lane[None, :] + 337 * np.arange(rounds)[:, None]) % p
+        digits = [lane % 10, lane // 10 % 10, lane // 100 % 10, 7 * lane % 10]
+        acc = np.stack([fp.ints_to_limbs([e[d] for d in dig])
+                        for dig in digits])
+    else:
+        rng = np.random.default_rng(seed)
+        widths = np.array(fp.W)[:, None]
+
+        def limbs(n):
+            return (rng.integers(0, 1 << 26, (nl, n)) % (1 << widths)
+                    ).astype(np.int32)
+        p, n_rows = lanes, 4096
+        cols = [limbs(n_rows) for _ in range(3)]
+        idx = rng.integers(0, n_rows, (rounds, p))
+        acc = np.stack([limbs(p) for _ in range(4)])
+    rows = np.zeros((cols[0].shape[1], 32), dtype=np.int32)
+    rows[:, :3 * nl] = np.concatenate(cols).T
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+                 .to(device) for a in (rows, idx, acc))
+
+
+def check_edge_kernels(ms, device):
+    """Phase 2: K1, K2, K8, K9 and K10 against their plain versions
+    (tolerance 0) on edge_inputs (the core's edge values; 2^16 seeded
+    random lanes x 8 rounds); K8's and K10's pools against K1's, K9's
+    against K2's."""
+    import torch
+    for label, lanes in (("edge values", None),
+                         ("random, 2^16 lanes", 1 << 16)):
+        src, idx, acc = edge_inputs(device, lanes)
+        t, p = idx.shape
+        g_cols, g_flat = ms.gather_cols(src, idx), ms.gather_flat(src, idx)
+        runs = {
+            "bucket_accumulate": (
+                ms.bucket_accumulate(src, idx),
+                ms.bucket_accumulate_plain(src, idx)),
+            "bucket_accumulate_cont": (
+                ms.bucket_accumulate_cont(src, idx, acc),
+                ms.bucket_accumulate_cont_plain(src, idx, acc)),
+            "bucket_accumulate_cols": (
+                ms.bucket_accumulate_cols(g_cols),
+                ms.bucket_accumulate_cols_plain(g_cols)),
+            "bucket_accumulate_cols_cont": (
+                ms.bucket_accumulate_cols_cont(g_cols, acc),
+                ms.bucket_accumulate_cols_cont_plain(g_cols, acc)),
+            "bucket_accumulate_flat": (
+                ms.bucket_accumulate_flat(g_flat, t, p),
+                ms.bucket_accumulate_flat_plain(g_flat, t, p))}
+        bad = [name for name, (k, pl) in runs.items()
+               if not torch.equal(k, pl)]
+        k1 = runs["bucket_accumulate"][0]
+        k2 = runs["bucket_accumulate_cont"][0]
+        if (bad or not torch.equal(runs["bucket_accumulate_cols"][0], k1)
+                or not torch.equal(runs["bucket_accumulate_flat"][0], k1)
+                or not torch.equal(runs["bucket_accumulate_cols_cont"][0],
+                                   k2)):
+            raise AssertionError(f"field edges ({label}): kernels != plain "
+                                 f"{bad}, or K8/K10 != K1, K9 != K2")
+        say(f"field edges ({label}, T={t} P={p}): K1, K2, K8, K9, K10 equal "
+            "to plain (tolerance 0); K8, K10 equal K1; K9 equals K2")
 
 
 def ptxas_usage(log, kernel):
@@ -733,7 +832,12 @@ def main() -> int:
         f"{time.time() - t0:.1f} s")
     results = check_kernels(ms, *calls[0], "k=3 commitment launch")
     verifier = check_kernels(ms, *calls[-1], "k=1 verifier launch")
-    for name, kernel in (("K3", "bucket_merge_kernel"),
+    check_edge_kernels(ms, device)
+    for name, kernel in (("K1", "bucket_accumulate_kernelILb0E"),
+                         ("K2", "bucket_accumulate_kernelILb1E"),
+                         ("K8/K10", "bucket_accumulate_limbs_kernelILb0E"),
+                         ("K9", "bucket_accumulate_limbs_kernelILb1E"),
+                         ("K3", "bucket_merge_kernel"),
                          ("K4", "window_sums_kernel"),
                          ("K5", "horner_kernel"),
                          ("K6", "ladder_fold_kernel")):

@@ -1,17 +1,18 @@
-"""Time the MSM's K3 (bucket_merge), K4 (window_sums) and K5 (horner)
-kernels and the fold's K6 (ladder_fold) on one NVIDIA GPU for the port
-package of a given checkout, so that two checkouts can be compared in turns
-on one card:
+"""Time the MSM's K1 (bucket_accumulate), K8 (bucket_accumulate_cols), K3
+(bucket_merge), K4 (window_sums) and K5 (horner) kernels and the fold's K6
+(ladder_fold) on one NVIDIA GPU for the port package of a given checkout,
+so that two checkouts can be compared in turns on one card:
 
     python3 scripts/time_scans.py [--root DIR] [--label NAME]
 
 --root is the directory holding `bulletproof_gadgets_tpu_torch` (default:
 this checkout); its kernels are built there at first use.  The inputs are
-made from a seed, the same in every checkout: the bucket pool of an MSM of
-k scalar vectors over a 2,050-point generator table (k = 1, 3, 9: the
-verifier's, the commitments' and three stacked proofs' launches; the first
-vector is a bit vector, whose one live bucket splits over the most pool
-lanes, as a commitment's does), and folds of 2,048 and 8,192 outputs of 16
+made from a seed, the same in every checkout: the plan (idx), its
+gather_cols blocks and the bucket pool of an MSM of k scalar vectors over
+a 2,050-point generator table (k = 1, 3, 9: the verifier's, the
+commitments' and three stacked proofs' launches; the first vector is a bit
+vector, whose one live bucket splits over the most pool lanes, as a
+commitment's does), and folds of 2,048 and 8,192 outputs of 16
 terms (the fold of a 2^14- and of a 2^16-gens table) with random table rows
 and random windows.  Each kernel is held against its plain version
 (tolerance 0), then timed with CUDA events (mean of 20 launches after a
@@ -76,16 +77,26 @@ def main() -> int:
         digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
         d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
         idx, offs, sub = ms.plan(d.to(dev), n)
+        g = ms.gather_cols(src, idx)
         pool = ms.bucket_accumulate(src, idx)
         buckets = ms.bucket_merge(pool, offs, sub)
         ws = ms.window_sums(buckets)
-        if not (torch.equal(buckets, ms.bucket_merge_plain(pool, offs, sub))
+        if not (torch.equal(pool, ms.bucket_accumulate_plain(src, idx))
+                and torch.equal(ms.bucket_accumulate_cols(g),
+                                ms.bucket_accumulate_cols_plain(g))
+                and torch.equal(buckets,
+                                ms.bucket_merge_plain(pool, offs, sub))
                 and torch.equal(ws, ms.window_sums_plain(buckets))
                 and torch.equal(ms.horner(ws, k), ms.horner_plain(ws, k))):
             raise AssertionError(f"k={k}: a kernel differs from its plain "
                                  "version")
         res[f"k={k}"] = {
+            "T": idx.shape[0], "P": idx.shape[1],
             "max_sub": int(sub.max()),
+            "bucket_accumulate_ms": timed(
+                lambda: ms.bucket_accumulate(src, idx)),
+            "bucket_accumulate_cols_ms": timed(
+                lambda: ms.bucket_accumulate_cols(g)),
             "bucket_merge_ms": timed(lambda: ms.bucket_merge(pool, offs, sub)),
             "window_sums_ms": timed(lambda: ms.window_sums(buckets)),
             "horner_ms": timed(lambda: ms.horner(ws, k))}

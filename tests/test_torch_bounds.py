@@ -1,4 +1,6 @@
-"""Limb bounds of the port's field layout (ops/fp, csrc/field.cuh).
+"""Limb bounds of the port's field layouts: the 10-limb core (ops/fp,
+csrc/field.cuh) and the radix-2^32 core of the bucket accumulation
+(csrc/field32.cuh).
 
 Runs interval arithmetic over the exact op sequences of ops/curve.madd,
 padd and dbl, and of the table fold (ops/ipa_fold, csrc/ipa_fold.cu:
@@ -16,6 +18,12 @@ interval field — and proves, for any input values:
     (table rows, the identity), the hull of everything madd, padd and dbl
     produce reaches a fixed point, and it is inside canonical()'s input
     range.
+The hull starts from canonical limbs, and that covers every 10-limb input
+the kernels see: table rows; K3's input, the pool, which K1, K2 and K8-K10
+write as canonical limbs; and K2's and K9's carried pools, which are that
+pool (their plain versions reject limbs outside [0, 2^w)) and which their
+radix-2^32 core reads by shifts, not through fe_mul.  The radix-2^32 core
+itself is modelled instruction for instruction at the end of this file.
 The JAX package's tests/test_pallas_curve.py does the same for the 13-bit
 TPU layout.
 """
@@ -196,3 +204,240 @@ def test_fold_sequences_keep_the_bounds():
             assert max(-lo, hi) < (1 << 28) - 152        # also negated
     assert F.max_abs["col64"] < 1 << 62
     assert F.max_abs["lazy32"] < 1 << 29
+
+
+# -- the radix-2^32 core of K1, K2 and K8-K10 (csrc/field32.cuh) --------------
+#
+# A model of the core's PTX, instruction for instruction, on Python ints:
+# every result must fit its 32-bit register, plus the carry flag where the
+# instruction sets it (.cc); an instruction without .cc that would carry out
+# fails.  The model's results are held against Python's (a op b) % p.
+
+M32 = (1 << 32) - 1
+P8 = (1 << 255) - 19
+P_WORDS = [0xffffffed] + [0xffffffff] * 6 + [0x7fffffff]
+
+
+class Ptx:
+    """The carry flag and the u32 instructions field32.cuh uses; `hits`
+    counts the rare carries and borrows (so the tests can show that their
+    operands reach them)."""
+
+    def __init__(self):
+        self.cf = 0
+        self.hits = {"add_wrap2": 0, "sub_borrow2": 0, "mul_fold3": 0,
+                     "canonical_sub2": 0}
+
+    def _put(self, v, cc):
+        assert 0 <= v < (1 << 33 if cc else 1 << 32), (v, cc)
+        if cc:
+            self.cf = v >> 32
+        return v & M32
+
+    def mad(self, half, a, b, c, cc, carry_in):
+        assert 0 <= a <= M32 and 0 <= b <= M32 and 0 <= c <= M32
+        p = a * b
+        part = p & M32 if half == "lo" else p >> 32
+        return self._put(part + c + (self.cf if carry_in else 0), cc)
+
+    def add(self, a, b, cc, carry_in):
+        assert 0 <= a <= M32 and 0 <= b <= M32
+        return self._put(a + b + (self.cf if carry_in else 0), cc)
+
+    def sub(self, a, b, cc, borrow_in):
+        assert 0 <= a <= M32 and 0 <= b <= M32
+        v = a - b - (self.cf if borrow_in else 0)
+        if cc:
+            self.cf = int(v < 0)
+            return v & M32
+        assert v >= 0, "borrow lost"
+        return v
+
+    def borrow_mask(self):                   # subc.u32 c, 0, 0
+        return M32 if self.cf else 0
+
+
+def words(v):
+    assert 0 <= v < 1 << 256
+    return [(v >> (32 * i)) & M32 for i in range(8)]
+
+
+def value(w):
+    return sum(x << (32 * i) for i, x in enumerate(w))
+
+
+def fe8_add(m, a, b):
+    r = [m.add(a[i], b[i], True, i > 0) for i in range(8)]
+    c = m.add(0, 0, False, True) * 38
+    r = [m.add(r[i], c if i == 0 else 0, True, i > 0) for i in range(8)]
+    c = m.add(0, 0, False, True)
+    m.hits["add_wrap2"] += c
+    r[0] = m.mad("lo", c, 38, r[0], False, False)
+    return r
+
+
+def fe8_sub(m, a, b):
+    r = [m.sub(a[i], b[i], True, i > 0) for i in range(8)]
+    c = m.borrow_mask() & 38
+    r = [m.sub(r[i], c if i == 0 else 0, True, i > 0) for i in range(8)]
+    c = m.borrow_mask() & 38
+    m.hits["sub_borrow2"] += c > 0
+    r[0] = m.sub(r[0], c, False, False)
+    return r
+
+
+def fe8_chain(m, acc, k, x4, b, mode):
+    """acc[k..k+7] += x4[j] * b as word pairs at k + 2j, then the carry
+    out of word k+7 added to acc[k+8] ("add"), written there ("set") or
+    proved absent ("none")."""
+    for j in range(4):
+        acc[k + 2 * j] = m.mad("lo", x4[j], b, acc[k + 2 * j], True, j > 0)
+        acc[k + 2 * j + 1] = m.mad("hi", x4[j], b, acc[k + 2 * j + 1],
+                                   j < 3 or mode != "none", True)
+    if mode == "add":
+        acc[k + 8] = m.add(acc[k + 8], 0, False, True)
+    elif mode == "set":
+        acc[k + 8] = m.add(0, 0, False, True)
+
+
+def fe8_mul(m, a, b):
+    E, O = [0] * 16, [0] * 16
+    for j in range(0, 8, 2):                 # row 0: no addend, no carry
+        E[j], E[j + 1] = (a[j] * b[0]) & M32, (a[j] * b[0]) >> 32
+        O[j + 1], O[j + 2] = (a[j + 1] * b[0]) & M32, (a[j + 1] * b[0]) >> 32
+    for i in range(1, 8):
+        o = i & 1
+        fe8_chain(m, E, i + o, a[o::2], b[i], "add" if i < 7 else "none")
+        fe8_chain(m, O, i + 1 - o, a[1 - o::2], b[i], "add")
+    assert value(E) + value(O) == value(a) * value(b)
+    fe8_chain(m, E, 0, E[8::2], 38, "set")
+    fe8_chain(m, E, 0, O[8::2], 38, "add")
+    odd_hi = E[9::2], O[9::2]
+    O[8] = 0
+    fe8_chain(m, O, 1, odd_hi[0], 38, "none")
+    fe8_chain(m, O, 1, odd_hi[1], 38, "none")
+    r = [E[0]] + [m.add(E[i], O[i], True, i > 1) for i in range(1, 8)]
+    c = m.add(E[8], O[8], False, True)
+    assert c <= 39                           # r < 40 * 2^256
+    c = m.mad("lo", c, 38, 0, False, False)  # mul.lo
+    r = [m.add(r[i] if i else E[0], c if i == 0 else 0, True, i > 0)
+         for i in range(8)]
+    c = m.add(0, 0, False, True)
+    m.hits["mul_fold3"] += c
+    r[0] = m.mad("lo", c, 38, r[0], False, False)
+    return r
+
+
+def fe8_sub_p_if_ge(m, a):
+    d = [m.sub(a[i], P_WORDS[i], True, i > 0) for i in range(8)]
+    return a if m.borrow_mask() else d
+
+
+def fe8_to_canonical_limbs(m, a):
+    once = fe8_sub_p_if_ge(m, a)
+    c = fe8_sub_p_if_ge(m, once)
+    m.hits["canonical_sub2"] += c is not once
+    v = value(c)
+    assert v < P8
+    return [(v >> s) & ((1 << w) - 1) for s, w in zip(fp.S, fp.W)]
+
+
+def fe8_from_limbs(limbs):
+    l = limbs
+    assert all(0 <= x < 1 << w for x, w in zip(l, fp.W))
+    return [(l[0] | (l[1] << 26)) & M32,
+            ((l[1] >> 6) | (l[2] << 19)) & M32,
+            ((l[2] >> 13) | (l[3] << 13)) & M32,
+            ((l[3] >> 19) | (l[4] << 6)) & M32,
+            (l[5] | (l[6] << 25)) & M32,
+            ((l[6] >> 7) | (l[7] << 19)) & M32,
+            ((l[7] >> 13) | (l[8] << 12)) & M32,
+            ((l[8] >> 20) | (l[9] << 6)) & M32]
+
+
+def _edge_operands():
+    """Worst cases for the core (the largest lazy value, p and its
+    neighbours, 0) and operands that reach the rare carries: with b =
+    2^256 - 1 and a = 36 / 37 mod 2^256 the product's first fold leaves
+    2^256 - 2 beside a carry word, so the second fold carries out."""
+    top = (1 << 256) - 1
+    fold3 = 36 * pow(37, -1, 1 << 256) % (1 << 256)
+    return [0, 1, 19, 38, P8 - 1, P8, P8 + 1, 2 * P8 - 1, 2 * P8, top,
+            top - 37, (1 << 255) - 1, 1 << 255, (1 << 224) - 1, M32, fold3]
+
+
+def _operand_pairs():
+    import random
+    r = random.Random(32)
+    edge = _edge_operands()
+    pairs = [(a, b) for a in edge for b in edge]
+    pairs += [(r.randrange(1 << 256), r.randrange(1 << 256))
+              for _ in range(300)]
+    return pairs
+
+
+def test_field32_model_matches_python_ints():
+    """fe8_mul, fe8_add, fe8_sub and the final reduction of
+    csrc/field32.cuh, modelled instruction for instruction, on edge and
+    seeded random operands < 2^256: each result is < 2^256 (8 words) and
+    equal mod p to (a op b) % p, no instruction needs more than its 32-bit
+    word and the carry flag, and the rare carries (a second wrap of an add,
+    a second borrow of a sub, the product's last fold, a second subtraction
+    of p) are all reached."""
+    m = Ptx()
+    for a, b in _operand_pairs():
+        wa, wb = words(a), words(b)
+        for op, want in ((fe8_mul, a * b), (fe8_add, a + b),
+                         (fe8_sub, a - b)):
+            got = value(op(m, wa, wb))
+            assert got < 1 << 256 and got % P8 == want % P8, (op, a, b)
+        limbs = fe8_to_canonical_limbs(m, wa)
+        assert limbs == fp.int_to_limbs(a)
+        assert value(fe8_from_limbs(limbs)) == a % P8
+    assert all(m.hits.values()), m.hits
+
+
+def test_field32_madd_model_matches_plain_madd():
+    """ge8_madd (csrc/field32.cuh) on the model, from canonical limbs in
+    and to canonical limbs out as the kernels run it, against the plain
+    version's curve.madd followed by fp.canonical, over a few rounds from
+    the identity and from edge-valued accumulators."""
+    import random
+    r = random.Random(33)
+    edge = _edge_operands()
+    m = Ptx()
+
+    def madd8(p, x2, y2, t2d):
+        X, Y, Z, T = p
+        a = fe8_mul(m, fe8_sub(m, Y, X), fe8_sub(m, y2, x2))
+        b = fe8_mul(m, fe8_add(m, Y, X), fe8_add(m, y2, x2))
+        c = fe8_mul(m, T, t2d)
+        d = fe8_add(m, Z, Z)
+        e, f, g, h = (fe8_sub(m, b, a), fe8_sub(m, d, c), fe8_add(m, d, c),
+                      fe8_add(m, b, a))
+        return (fe8_mul(m, e, f), fe8_mul(m, g, h), fe8_mul(m, f, g),
+                fe8_mul(m, e, h))
+
+    lanes = 6
+    starts = [[0, 1, 1, 0]] + [[edge[(i * 4 + c) % len(edge)] % P8
+                                for c in range(4)] for i in range(lanes - 1)]
+    rows = [[[r.choice(edge + [r.randrange(P8)]) % P8 for _ in range(3)]
+             for _ in range(lanes)] for _ in range(3)]
+    acc8 = [tuple(fe8_from_limbs(fp.int_to_limbs(v)) for v in s)
+            for s in starts]
+    for rnd in rows:
+        acc8 = [madd8(p, *(fe8_from_limbs(fp.int_to_limbs(v)) for v in row))
+                for p, row in zip(acc8, rnd)]
+    got = [[fe8_to_canonical_limbs(m, c) for c in p] for p in acc8]
+    import numpy as np
+    import torch
+    acc = tuple(torch.from_numpy(fp.ints_to_limbs([s[c] for s in starts])
+                                 .astype(np.int64)) for c in range(4))
+    for rnd in rows:
+        acc = curve.madd(acc, tuple(
+            torch.from_numpy(fp.ints_to_limbs([row[c] for row in rnd])
+                             .astype(np.int64)) for c in range(3)))
+    want = [fp.canonical(c) for c in acc]
+    for lane in range(lanes):
+        for c in range(4):
+            assert got[lane][c] == [int(v) for v in want[c][:, lane]]

@@ -11,6 +11,8 @@ statement's full shapes (K7 on merkle32's chunk window sums, K2 and K9 on
 a round chunk of merkle32's batched commitments, K8 and K10 on the
 example's commitment launch).
 """
+import importlib.util
+import os
 import random
 
 import numpy as np
@@ -116,6 +118,50 @@ def test_scans_equal_plain_at_k9(scan_inputs, case):
         assert ms.LAUNCHES[name] == before + 1
         assert got.is_cuda and torch.equal(got, getattr(ms, name + "_plain")(
             *args))
+
+
+def _chip_smoke():
+    """chip_smoke.py (repository root) as a module, for its edge_inputs."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ACCUMULATE = ("bucket_accumulate", "bucket_accumulate_cont",
+              "bucket_accumulate_cols", "bucket_accumulate_cols_cont",
+              "bucket_accumulate_flat")
+
+
+@pytest.mark.parametrize("lanes", [None, 1 << 16], ids=["edges", "random"])
+def test_accumulation_equals_plain_at_field_edges(cuda, lanes):
+    """K1, K2, K8, K9 and K10 against their plain versions (tolerance 0)
+    on crafted rows and carried pools whose coordinates sit at the edges of
+    the radix-2^32 core (chip_smoke.EDGE_VALUES: 0, 1, 19, 38, p - 1,
+    p - 38, 2^224 - 1, 2^254 +- 1, 2^32 - 1; every combination as a row),
+    and on 2^16 seeded random lanes x 8 rounds; K8's and K10's pools equal
+    K1's, K9's equals K2's; one launch each."""
+    src, idx, acc = _chip_smoke().edge_inputs(cuda, lanes)
+    t, p = idx.shape
+    g_cols, g_flat = ms.gather_cols(src, idx), ms.gather_flat(src, idx)
+    args = {"bucket_accumulate": (src, idx),
+            "bucket_accumulate_cont": (src, idx, acc),
+            "bucket_accumulate_cols": (g_cols,),
+            "bucket_accumulate_cols_cont": (g_cols, acc),
+            "bucket_accumulate_flat": (g_flat, t, p)}
+    before = dict(ms.LAUNCHES)
+    got = {name: getattr(ms, name)(*args[name]) for name in ACCUMULATE}
+    torch.cuda.synchronize()
+    for name in ACCUMULATE:
+        assert ms.LAUNCHES[name] == before[name] + 1
+        assert torch.equal(got[name], getattr(ms, name + "_plain")(
+            *args[name])), name
+    for name in ("bucket_accumulate_cols", "bucket_accumulate_flat"):
+        assert torch.equal(got[name], got["bucket_accumulate"])
+    assert torch.equal(got["bucket_accumulate_cols_cont"],
+                       got["bucket_accumulate_cont"])
 
 
 def test_msm_equals_host(stage_inputs):

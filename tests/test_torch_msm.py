@@ -17,7 +17,7 @@ from bulletproof_gadgets_tpu.ops import msm_serial as jax_msm_serial
 from bulletproof_gadgets_tpu_torch.core.gens import BulletproofGens
 from bulletproof_gadgets_tpu_torch.core.ristretto import P, RistrettoPoint
 from bulletproof_gadgets_tpu_torch.core.scalar import L
-from bulletproof_gadgets_tpu_torch.ops import curve, msm_serial as ms
+from bulletproof_gadgets_tpu_torch.ops import curve, fp, msm_serial as ms
 
 torch.set_num_threads(1)
 
@@ -186,6 +186,38 @@ def test_cont_plain_continues_plain(points):
         got = ms.bucket_accumulate_cont_plain(src, idx[t0:].contiguous(),
                                               head)
         assert torch.equal(got, whole)
+
+
+@pytest.mark.parametrize("name", [
+    "bucket_accumulate", "bucket_accumulate_cont", "bucket_accumulate_cols",
+    "bucket_accumulate_cols_cont", "bucket_accumulate_flat"])
+def test_accumulation_writes_canonical_limbs(points, name):
+    """K1, K2 and K8-K10 (their plain versions here) write the canonical
+    limbs of each coordinate, as their kernels do; K2 and K9 refuse a
+    carried pool with a limb outside [0, 2^w) (their kernels read it by
+    shifts)."""
+    n = 130
+    src = torch.from_numpy(ms.prep_source(points[:n]))
+    idx, _, _ = ms.plan(_digits_t(_vectors(3, n, seed=22)), n)
+    t, p = idx.shape
+    head = ms.bucket_accumulate(src, idx[:1].contiguous())
+    g = ms.gather_cols(src, idx)
+    args = {"bucket_accumulate": (src, idx),
+            "bucket_accumulate_cont": (src, idx, head),
+            "bucket_accumulate_cols": (g,),
+            "bucket_accumulate_cols_cont": (g, head),
+            "bucket_accumulate_flat": (ms.gather_flat(src, idx), t, p)}[name]
+    out = getattr(ms, name)(*args)
+    flat = out.reshape(4 * fp.NL, -1).numpy().reshape(4, fp.NL, -1)
+    for c in range(4):
+        assert np.array_equal(flat[c], fp.ints_to_limbs(
+            fp.limbs_to_ints(flat[c])))
+    if name.endswith("_cont"):
+        for bad in (-1, 1 << 26):
+            pool = head.clone()
+            pool[1, 3, 5] = bad
+            with pytest.raises(ValueError):
+                getattr(ms, name)(*args[:-1], pool)
 
 
 @pytest.mark.parametrize("point_chunk", [None, 64])
