@@ -14,12 +14,13 @@ device table (ops/msm_serial.GeneratorTable, `supports_digits`) the O(n)
 work runs on the device: the A_I/A_O/S digits, the flattening
 (ops/flatten, host loop below its size rule), the t-poly and l(x)/r(x)
 vectors (ops/prover_device), the inner-product argument (ops/ipa_fused)
-and the verifier's table scalars (ops/verifier_device); every table MSM
-is `table.msm_digits`.  On a host table (core/msm._HostTable) the host
-loops below run: they are the oracle.  `Prover.prove_gen` is the proof as
-a generator of device requests (the commitments' MSM, the t-poly readback,
-the argument); `Prover.prove` answers them for one proof, lang/batch for
-many proofs in lockstep.
+and the verifier's table scalars (ops/verifier_device); the commitments'
+MSM is `table.msm_digits_enc_launch` (their points compressed on the
+device), the verifier's `table.msm_digits`.  On a host table
+(core/msm._HostTable) the host loops below run: they are the oracle.
+`Prover.prove_gen` is the proof as a generator of device requests (the
+commitments' MSM, the t-poly readback, the argument); `Prover.prove`
+answers them for one proof, lang/batch for many proofs in lockstep.
 
 The reference never uses randomized (2-phase) constraints, so this
 implementation is 1-phase: A_I2/A_O2/S2 are identity and the proof
@@ -201,8 +202,8 @@ class Prover:
     # -- proving -----------------------------------------------------------
     def prove(self, bp_gens) -> R1CSProof:
         """Single proof: drives `prove_gen`, answering each request with
-        the table itself (`table.msm_digits`), one readback, or
-        ops/ipa_fused.create."""
+        the table itself (`table.msm_digits_enc_launch` / `_finish`), one
+        readback, or ops/ipa_fused.create."""
         gen = self.prove_gen(bp_gens)
         resp = None
         while True:
@@ -210,8 +211,9 @@ class Prover:
                 kind, table, arg = gen.send(resp)
             except StopIteration as stop:
                 return stop.value
-            if kind == "msm":
-                resp = table.msm_digits(arg)
+            if kind == "msm_enc":
+                resp = table.msm_digits_enc_finish(
+                    table.msm_digits_enc_launch(arg))
             elif kind == "fused_ipa":
                 from ..ops import ipa_fused
                 resp = ipa_fused.create(arg[0], table, *arg[1:])
@@ -222,8 +224,10 @@ class Prover:
     def prove_gen(self, bp_gens):
         """Generator form of prove().  On a device table (`supports_digits`)
         the O(n) vectors stay on the device and it yields, in order:
-          ("msm", table, digits)      the A_I/A_O/S commitments' device
-                                      digits [3*32, m]; expects 3 points;
+          ("msm_enc", table, digits)  the A_I/A_O/S commitments' device
+                                      digits [3*32, m]; expects their 3
+                                      encodings (compressed on the
+                                      device, one readback of 96 bytes);
           ("fetch", None, rows)       the t-poly inner products [9, NW];
                                       expects them on the host;
           ("fused_ipa", table, args)  the argument (core/ipa.create_gen);
@@ -266,10 +270,11 @@ class Prover:
             wit = prover_device.upload(
                 [[s.v for s in vec] for vec in
                  (self.a_L, self.a_R, self.a_O, s_L1, s_R1)], dev)
-            p_AI, p_AO, p_S = yield ("msm", table,
-                                     prover_device.commitment_digits(
-                                         *wit, (i_blinding1.v, o_blinding1.v,
-                                                s_blinding1.v), padded_n1))
+            # the three points compress on the device: 96 bytes come back
+            A_I1, A_O1, S1 = yield ("msm_enc", table,
+                                    prover_device.commitment_digits(
+                                        *wit, (i_blinding1.v, o_blinding1.v,
+                                               s_blinding1.v), padded_n1))
         else:
             zpad = [0] * (padded_n1 - n1)
             zeros_N = [0] * padded_n1
@@ -280,9 +285,9 @@ class Prover:
             v_S = ([s.v for s in s_L1] + zpad
                    + [s.v for s in s_R1] + zpad + [0, s_blinding1.v])
             p_AI, p_AO, p_S = table.msm_many([v_AI, v_AO, v_S])
-        A_I1 = p_AI.compress()
-        A_O1 = p_AO.compress()
-        S1 = p_S.compress()
+            A_I1 = p_AI.compress()
+            A_O1 = p_AO.compress()
+            S1 = p_S.compress()
 
         append_point(t, b"A_I1", A_I1)
         append_point(t, b"A_O1", A_O1)

@@ -1,6 +1,7 @@
 // F_p (p = 2^255 - 19) and extended twisted-Edwards point functions shared
-// by the kernels of this package (K1, K2 and K8-K10 add on field32.cuh's
-// radix-2^32 core instead, and use only the limb layout and loads here).
+// by the kernels of this package (K1, K2, K7, K8-K10 and the compression
+// add on field32.cuh's radix-2^32 core instead, and use only the limb
+// layout, loads and fe_canonical here).
 // Plain-PyTorch twins: ops/fp.py (field) and ops/curve.py (points); both
 // compute the same integers, so kernel and plain results agree limb for
 // limb.  Every function is inline or static, so each translation unit that

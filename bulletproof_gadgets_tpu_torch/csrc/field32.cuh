@@ -1,6 +1,7 @@
 // F_p (p = 2^255 - 19) in radix 2^32 with PTX carry chains: the field core
-// of the bucket accumulation (K1, K2, K8-K10 in msm_kernels.cu).  Every
-// other kernel keeps field.cuh's 10-limb core.
+// of the bucket accumulation (K1, K2, K8-K10 in msm_kernels.cu), of the
+// chunk combine (K7) and of the compression (ristretto.cu).  K3-K6 keep
+// field.cuh's 10-limb core.
 //
 // fe8: 8 x 32-bit words, little-endian, any value < 2^256 standing for its
 // residue mod p (lazy: 2^256 = 2 * 2^255 = 38 mod p, so a word carried out
@@ -279,11 +280,16 @@ __device__ __forceinline__ fe8 fe8_sub_p_if_ge(const fe8& a) {
   return r;
 }
 
-// the unique limbs in [0, 2^w) of a mod p: a < 2^256 < 3p, so two
-// conditional subtractions of p leave it in [0, p); then limb i is bits
-// S_i .. S_i + w_i - 1
+// the canonical value of a mod p: a < 2^256 < 3p, so two conditional
+// subtractions of p leave it in [0, p)
+__device__ __forceinline__ fe8 fe8_canonical(const fe8& a) {
+  return fe8_sub_p_if_ge(fe8_sub_p_if_ge(a));
+}
+
+// the unique limbs in [0, 2^w) of a mod p: limb i is bits S_i .. S_i + w_i
+// - 1 of fe8_canonical(a)
 __device__ __forceinline__ fe fe8_to_canonical_limbs(const fe8& a) {
-  const fe8 c = fe8_sub_p_if_ge(fe8_sub_p_if_ge(a));
+  const fe8 c = fe8_canonical(a);
   const uint32_t* w = c.w;
   constexpr uint32_t M26 = (1u << 26) - 1, M25 = (1u << 25) - 1;
   fe r;
@@ -324,6 +330,41 @@ __device__ __forceinline__ ge8 ge8_identity() {
   r.Y = fe8_small(1);
   r.Z = fe8_small(1);
   r.T = fe8_small(0);
+  return r;
+}
+
+// a point of 10-limb carried coordinates (|limb| < 2^28 - 152, as every
+// 10-limb kernel writes them) -> ge8, through field.cuh's fe_canonical
+__device__ __forceinline__ ge8 ge8_from_carried(const ge& p) {
+  ge8 r;
+  r.X = fe8_from_limbs(fe_canonical(p.X));
+  r.Y = fe8_from_limbs(fe_canonical(p.Y));
+  r.Z = fe8_from_limbs(fe_canonical(p.Z));
+  r.T = fe8_from_limbs(fe_canonical(p.T));
+  return r;
+}
+
+// 2d mod p in words (field.cuh's fe_d2)
+__device__ __forceinline__ fe8 fe8_d2() {
+  fe8 r = {{0x26b2f159u, 0xebd69b94u, 0x8283b156u, 0x00e0149au, 0xeef3d130u,
+            0x198e80f2u, 0x56dffce7u, 0x2406d9dcu}};
+  return r;
+}
+
+// unified addition: ge_add's formula (ops/curve.padd), 9 products
+__device__ __forceinline__ ge8 ge8_add(const ge8& p, const ge8& q) {
+  const fe8 a = fe8_mul(fe8_sub(p.Y, p.X), fe8_sub(q.Y, q.X));
+  const fe8 b = fe8_mul(fe8_add(p.Y, p.X), fe8_add(q.Y, q.X));
+  const fe8 c = fe8_mul(fe8_mul(p.T, q.T), fe8_d2());
+  const fe8 zz = fe8_mul(p.Z, q.Z);
+  const fe8 d = fe8_add(zz, zz);
+  const fe8 e = fe8_sub(b, a), f = fe8_sub(d, c), g = fe8_add(d, c),
+            h = fe8_add(b, a);
+  ge8 r;
+  r.X = fe8_mul(e, f);
+  r.Y = fe8_mul(g, h);
+  r.Z = fe8_mul(f, g);
+  r.T = fe8_mul(e, h);
   return r;
 }
 

@@ -1,13 +1,13 @@
 // The kernels of the serial-bucket MSM (ops/msm_serial.py): the four stages
 // of one MSM (K1, K3, K4, K5), the bucket accumulation that carries its
-// pool in across round chunks (K2), the lane-wise add that combines the
+// pool in across round chunks (K2), the lane-wise sum that combines the
 // window sums of point chunks (K7), and the bucket accumulation of the
 // pre-transposed layouts (K8, K9, K10), with a plain C interface for
 // ctypes.  Each launcher runs on the given stream, allocates nothing, and
 // returns cudaGetLastError() (0 = launched).
 //
-// K1, K2 and K8-K10 add in radix 2^32 (field32.cuh) and write canonical
-// limbs; the other kernels use field.cuh's 10-limb core.
+// K1, K2, K7 and K8-K10 add in radix 2^32 (field32.cuh) and write
+// canonical limbs; the other kernels use field.cuh's 10-limb core.
 // Point arrays use the [4, 10, n] int32 layout of field.cuh; source rows
 // are int32 [S, 32]: x limbs 0..9, y 10..19, t2d = x*y*2d 20..29, 2 pad.
 // Gathered coordinates (K8-K10) hold the same 30 limbs per slot, limb-major:
@@ -327,13 +327,21 @@ horner_kernel(const int32_t* __restrict__ ws, int k, int nwin, int c,
   for (int t = lane; t < 40; t += 32) out[t * k + v] = s.w.r[t / 10][t % 10];
 }
 
-// K7: lane i of out = p[lane i] + q[lane i] (unified addition).
+// K7: lane i of out = ws[0][i] + ws[1][i] + ... + ws[D-1][i], the window
+// sums of D point chunks [D, 4, 10, n] added in chunk order by unified
+// additions on field32.cuh's core (the chained adds of the D - 1 launches
+// this replaces), written as canonical limbs.  One thread per lane: at the
+// chunk combine's 32-352 lanes the launch is the cost, not the adds.
 __global__ void __launch_bounds__(kThreads)
-point_add_kernel(const int32_t* __restrict__ p, const int32_t* __restrict__ q,
-                 int n, int32_t* __restrict__ out) {
+point_sum_kernel(const int32_t* __restrict__ ws, int D, int n,
+                 int32_t* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  ge_store(out, n, i, ge_add(ge_load(p, n, i), ge_load(q, n, i)));
+  ge8 acc = ge8_from_carried(ge_load(ws, n, i));
+  for (int d = 1; d < D; d++)
+    acc = ge8_add(acc, ge8_from_carried(ge_load(ws + (int64_t)d * 40 * n,
+                                                n, i)));
+  ge_store(out, n, i, ge8_to_canonical_limbs(acc));
 }
 
 }  // namespace
@@ -421,10 +429,10 @@ int bpg_horner(const void* ws, int k, int nwin, int c, void* out,
   return (int)cudaGetLastError();
 }
 
-int bpg_point_add(const void* p, const void* q, int n, void* out,
-                  void* stream) {
-  point_add_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)p, (const int32_t*)q, n, (int32_t*)out);
+int bpg_point_sum(const void* ws, int D, int n, void* out, void* stream) {
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  point_sum_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ws, D, n, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -10,8 +10,9 @@ own Fiat-Shamir transcript, but across a batch the device work combines:
     models.mimc's image cache before any proof starts;
   * the proofs' generators (core/r1cs.Prover.prove_gen) run in lockstep:
     the A_I/A_O/S commitments of proofs sharing a table (ops/engine caches
-    one table per circuit size) go into one MSM launch of up to
-    max_stack_k() stacked vectors, the t-poly readbacks into one transfer,
+    one table per circuit size) go into one encoded MSM of up to
+    max_stack_k() stacked vectors (its points compressed on the device,
+    one readback of their bytes), the t-poly readbacks into one transfer,
     and the arguments into one ops/ipa_fused.create_batched per table.
 
 A batch's bytes are not those of sequential proves: every witness is
@@ -76,11 +77,11 @@ def _groups(items, k_cap):
 
 def _drive_lockstep(gens, max_k=None):
     """Run prover generators in lockstep, answering each step's requests
-    together: same-table "msm" requests as one launch per <= max_k
-    (default max_stack_k()) stacked vectors, "fetch" requests as one
-    transfer per shape, "fused_ipa" requests as one create_batched per
-    table.  A generator that yields nothing (a host table) finishes at its
-    first step."""
+    together: same-table "msm_enc" requests as one encoded MSM per <= max_k
+    (default max_stack_k()) stacked vectors, all launched before the first
+    readback, "fetch" requests as one transfer per shape, "fused_ipa"
+    requests as one create_batched per table.  A generator that yields
+    nothing (a host table) finishes at its first step."""
     live = dict(enumerate(gens))
     resps = {i: None for i in live}
     results = {}
@@ -94,20 +95,23 @@ def _drive_lockstep(gens, max_k=None):
                 results[i] = stop.value
                 del live[i]
                 continue
-            if kind == "msm":
+            if kind == "msm_enc":
                 msms.setdefault(id(table), (table, []))[1].append((i, arg))
             elif kind == "fetch":
                 fetches.setdefault(tuple(arg.shape), []).append((i, arg))
             else:
                 assert kind == "fused_ipa"
                 ipas.setdefault(id(table), (table, []))[1].append((i, arg))
-        for table, items in msms.values():
-            for group in _groups(items, k_cap):
-                pts = table.msm_digits(torch.cat([d for _, d, _ in group]))
-                off = 0
-                for i, _, k in group:
-                    resps[i] = pts[off:off + k]
-                    off += k
+        pending = [(table, group, table.msm_digits_enc_launch(
+            torch.cat([d for _, d, _ in group])))
+            for table, items in msms.values()
+            for group in _groups(items, k_cap)]
+        for table, group, launch in pending:
+            encs = table.msm_digits_enc_finish(launch)
+            off = 0
+            for i, _, k in group:
+                resps[i] = encs[off:off + k]
+                off += k
         for items in fetches.values():
             rows = torch.stack([a for _, a in items]).cpu()
             for (i, _), row in zip(items, rows):

@@ -10,7 +10,9 @@ launch calls `load()`.  `BUILD_LOG` keeps nvcc's output (-Xptxas -v:
 registers, spills) of a build made in this process.
 
 `LAUNCHES` counts, per kernel, the launches its wrapper made (and nothing
-else: a wrapper given CPU tensors runs the plain version and counts none).
+else: a wrapper given CPU tensors runs the plain version and counts none);
+`challenge_rows`, the transcript kernel's check-only mode, counts apart
+from the path's `transcript_round`.
 """
 import ctypes
 import glob
@@ -40,13 +42,20 @@ _FUNCS = {
     "bpg_window_sums": [_P, _I, _I, _P, _P],
     "bpg_horner": [_P, _I, _I, _I, _P, _P],
     "bpg_ladder_fold": [_P, _P, _P, _I, _I, _P, _P],
-    "bpg_point_add": [_P, _P, _I, _P, _P],
+    "bpg_point_sum": [_P, _I, _I, _P, _P],
+    "bpg_ristretto_compress": [_P, _I, _P, _P],
+    "bpg_transcript_round": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    # latency probes of one dependent field product (chip_smoke.py)
+    "bpg_fe8_sqr_chain": [_P, _I, _P, _P],
+    "bpg_fl8_sqr_chain": [_P, _I, _P, _P],
 }
 
 LAUNCHES = {"bucket_accumulate": 0, "bucket_accumulate_cont": 0,
             "bucket_merge": 0, "window_sums": 0, "horner": 0,
-            "ladder_fold": 0, "point_add": 0, "bucket_accumulate_cols": 0,
-            "bucket_accumulate_cols_cont": 0, "bucket_accumulate_flat": 0}
+            "ladder_fold": 0, "point_sum": 0, "bucket_accumulate_cols": 0,
+            "bucket_accumulate_cols_cont": 0, "bucket_accumulate_flat": 0,
+            "ristretto_compress": 0, "transcript_round": 0,
+            "challenge_rows": 0}
 
 _LIB = None
 BUILD_LOG = ""

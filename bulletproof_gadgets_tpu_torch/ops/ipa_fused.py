@@ -1,22 +1,29 @@
-"""The inner-product argument with its vectors on the device: the port of the
-JAX package's ops/ipa_fused.create (single proof).
+"""The inner-product argument with its vectors and its transcript on the
+device: the port of the JAX package's ops/ipa_fused.create (single proof)
+and create_batched.
 
 Per round: the pending challenge fold of a, b, gc, hc (ops/ipa_device._fold),
-the L and R scalars and their signed digits, all on the device; one MSM of
-k = 2 over the current table (ops/msm_serial.msm_digits_t); one readback of
-the two points.  Compression, the Merlin absorbs and the challenge run on
-the host (core/ristretto, utils/merlin), and u, u^-1 go up as two
-Montgomery rows.  Every FOLD_AT rounds of a segment, while the folded table
-keeps FOLD_MIN generators and at least 4 rounds remain, the table is folded
-(ops/ipa_fold.materialize) and gc, hc restart at one.
+the L and R scalars and their signed digits, one MSM of k = 2 over the
+current table (ops/msm_serial.msm_digits_t), the two points' compression
+(ops/ristretto_device.ristretto_compress) and the round's Fiat-Shamir step
+(ops/strobe_device.transcript_round: the L and R absorbs, the challenge u,
+u^-1 as Montgomery rows), all on the device; u and u^-1 stay there for the
+next fold.  Every FOLD_AT rounds of a segment, while the folded table keeps
+FOLD_MIN generators and at least 4 rounds remain, the table is folded
+(ops/ipa_fold.materialize) and gc, hc restart at one.  After the last
+round one readback returns the L/R encodings, a0, b0 and the final STROBE
+state and positions, which are written back into the host transcript
+(strobe_device.write_back), so the caller goes on with it as if the host
+had run the rounds.
 
-Why the transcript stays on the host: the JAX package moves compression and
-STROBE onto the TPU (ops/ristretto_device, strobe_device, keccak_device) so
-that XLA fuses a round into one program and the argument pays one remote
-readback.  Eager PyTorch fuses nothing: a 255-bit inversion chain is ~265
-sequential field muls of ~10 launches each, and f1600 is 24 rounds of ~30
-ops per permutation, thousands of launches per round against a host step of
-about a millisecond.
+The device transcript: the JAX package moves compression and STROBE onto
+the TPU (ops/ristretto_device, strobe_device, keccak_device) so that a
+round needs no host step and the argument pays one remote readback.  In
+eager PyTorch a 255-bit inversion chain would be ~265 sequential field
+muls of ~10 launches each, and f1600 24 rounds of ~50 ops, so here each is
+a hand-written kernel of one launch per round (csrc/ristretto.cu, csrc/
+transcript.cu).  The one readback a round still makes is the MSM
+schedule's bucket counts (msm_serial.schedule).
 
 Rounds over a table of more than msm_serial.POINT_CHUNK points run point
 chunked inside msm_serial.msm_digits_t (its K7 combine), so there is no
@@ -24,17 +31,56 @@ chunked inside msm_serial.msm_digits_t (its K7 combine), so there is no
 core/ipa.py (tests/test_torch_ipa.py).
 
 `create_batched` runs the arguments of a group of proofs over one table
-(lang/batch): per round one batched fold and digit build, one MSM of k = 2B
-and one readback of 2B points, no table fold.  Its transcripts are host
-transcripts, so unlike the JAX package (whose device transcript needs one
-byte layout per group) it takes proofs of any commitment count together.
+(lang/batch): per round one batched fold and digit build, one MSM of k = 2B,
+one compression of its 2B points and one transcript step for the B
+transcripts, no table fold.  Each transcript keeps its own byte positions,
+so unlike the JAX package (whose static positions need one byte layout per
+group) it takes proofs of any commitment count together.
 """
 import torch
 
-from . import fl, flvec, ipa_fold, msm_serial
+from . import (fl, flvec, ipa_fold, msm_serial, ristretto_device,
+               strobe_device)
 from .ipa_device import _fold, _scalars, round_masks
 from ..core.scalar import L
-from ..core.transcript import append_point, challenge_scalar
+
+
+def _inputs(dev, a, b, G_factors, H_factors):
+    """(a, b) as device std rows and the factors as Montgomery rows (ints
+    are uploaded; device rows pass through)."""
+    def std(v):
+        return (v if isinstance(v, torch.Tensor)
+                else fl.to_limbs([s % L for s in v], dev))
+
+    def mont(v):
+        return v if isinstance(v, torch.Tensor) else flvec.to_mont(v, dev)
+    return std(a), std(b), mont(G_factors), mont(H_factors)
+
+
+def _finish(transcripts, encs, a_d, b_d, state, meta):
+    """The one readback: encodings [rounds, B, 2, 32], a0 and b0 [B, NW],
+    states and positions; writes the states back into the transcripts.
+    -> [(L_vec, R_vec, a0, b0)] per transcript."""
+    nb, rounds = len(transcripts), len(encs)
+    flat = torch.cat([torch.stack(encs).reshape(-1).to(torch.int64),
+                      torch.stack([a_d, b_d], 1).reshape(-1),
+                      state.reshape(-1).to(torch.int64),
+                      meta.reshape(-1).to(torch.int64)]).cpu().numpy()
+    sizes = [rounds * nb * 64, 2 * nb * fl.NW, nb * 200, nb * 3]
+    parts, off = [], 0
+    for size in sizes:
+        parts.append(flat[off:off + size])
+        off += size
+    enc = parts[0].astype("uint8").reshape(rounds, nb, 2, 32)
+    ab = fl.limbs_to_ints(parts[1])
+    out = []
+    for i, t in enumerate(transcripts):
+        strobe_device.write_back(t, parts[2][200 * i:200 * (i + 1)],
+                                 parts[3][3 * i:3 * (i + 1)])
+        out.append(([bytes(enc[r, i, 0]) for r in range(rounds)],
+                    [bytes(enc[r, i, 1]) for r in range(rounds)],
+                    ab[2 * i], ab[2 * i + 1]))
+    return out
 
 
 def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
@@ -42,24 +88,20 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
            fold_min: int = ipa_fold.FOLD_MIN):
     """The IPA rounds over the device table `table` (msm_serial
     GeneratorTable with N = len(a)).  `transcript` is the host transcript
-    right after the ipp domain separator; the L/R absorbs and challenges
-    go into it.  w_scalar: int; a, b: ints or device std rows [n, NW];
-    G_factors, H_factors: ints or device Montgomery rows [n, NW] (ops/fl).
-    Returns (L_vec, R_vec, a0, b0) with L/R compressed and a0, b0
-    canonical ints."""
+    right after the ipp domain separator; on return it holds the state
+    after the L/R absorbs and challenges.  w_scalar: int; a, b: ints or
+    device std rows [n, NW]; G_factors, H_factors: ints or device
+    Montgomery rows [n, NW] (ops/fl).  Returns (L_vec, R_vec, a0, b0) with
+    L/R compressed and a0, b0 canonical ints."""
     dev = table.src.device
     n_full = len(a)
     assert table.N == n_full and n_full > 1
-    std = lambda v: (v if isinstance(v, torch.Tensor)            # noqa: E731
-                     else fl.to_limbs([s % L for s in v], dev))
-    mont = lambda v: (v if isinstance(v, torch.Tensor)           # noqa: E731
-                      else flvec.to_mont(v, dev))
-    a_d, b_d, gc, hc = std(a), std(b), mont(G_factors), mont(H_factors)
+    a_d, b_d, gc, hc = _inputs(dev, a, b, G_factors, H_factors)
     wr2 = fl.to_limbs([w_scalar * fl.R * fl.R % L], dev)[0]
+    state, meta = strobe_device.snapshot([transcript], dev)
     masks = round_masks(n_full, dev)
     src, n_seg, seg_masks, local = table.src, n_full, masks, 0
-    u = None
-    L_vec, R_vec = [], []
+    u, encs = None, []
     for rnd in range(len(masks)):
         if local:
             prev = seg_masks[local - 1]
@@ -74,20 +116,16 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
             gc = hc = fl.const(fl.R, a_d).expand(n_seg, fl.NW)
             seg_masks, local = round_masks(n_seg, dev), 0
         dig = _scalars(a_d, b_d, gc, hc, wr2, seg_masks[local])
-        cols = msm_serial.msm_digits_t(dig, src, 2 * n_seg + 2,
-                                       layout=table.layout)
-        p_l, p_r = msm_serial.points_from_cols(cols)
-        L_vec.append(p_l.compress())
-        R_vec.append(p_r.compress())
-        append_point(transcript, b"L", L_vec[-1])
-        append_point(transcript, b"R", R_vec[-1])
-        ch = challenge_scalar(transcript, b"u").v % L
-        u = flvec.to_mont([ch, pow(ch, L - 2, L)], dev).unbind(0)
+        enc = ristretto_device.ristretto_compress(msm_serial.msm_digits_t(
+            dig, src, 2 * n_seg + 2, layout=table.layout)).view(1, 2, 32)
+        state, meta, u_rows = strobe_device.transcript_round(state, meta,
+                                                             enc)
+        encs.append(enc)
+        u = u_rows[0].unbind(0)
         local += 1
     prev = seg_masks[local - 1]
     a_d, b_d, _, _ = _fold(a_d, b_d, gc, hc, *u, prev["ga"], prev["hi"])
-    a0, b0 = fl.limbs_to_ints(torch.stack([a_d[0], b_d[0]]))
-    return L_vec, R_vec, a0, b0
+    return _finish([transcript], encs, a_d[:1], b_d[:1], state, meta)[0]
 
 
 def create_batched(transcripts, table, w_scalars, G_factors_list,
@@ -113,39 +151,26 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
     dev = table.src.device
     n_full = len(a_list[0])
     assert table.N == n_full and n_full > 1
-    std = lambda v: (v if isinstance(v, torch.Tensor)            # noqa: E731
-                     else fl.to_limbs([s % L for s in v], dev))
-    mont = lambda v: (v if isinstance(v, torch.Tensor)           # noqa: E731
-                      else flvec.to_mont(v, dev))
-    a_d = torch.stack([std(v) for v in a_list])          # [B, n, NW]
-    b_d = torch.stack([std(v) for v in b_list])
-    gc = torch.stack([mont(v) for v in G_factors_list])
-    hc = torch.stack([mont(v) for v in H_factors_list])
+    ins = [_inputs(dev, *v) for v in zip(a_list, b_list, G_factors_list,
+                                         H_factors_list)]
+    a_d, b_d, gc, hc = (torch.stack(v) for v in zip(*ins))   # [B, n, NW]
     wr2 = fl.to_limbs([w * fl.R * fl.R % L for w in w_scalars],
                       dev)[:, None, :]                   # [B, 1, NW]
+    state, meta = strobe_device.snapshot(transcripts, dev)
     masks = round_masks(n_full, dev)
-    u = None
-    outs = [([], []) for _ in transcripts]
+    u, encs = None, []
     for rnd, mk in enumerate(masks):
         if rnd:
             prev = masks[rnd - 1]
             a_d, b_d, gc, hc = _fold(a_d, b_d, gc, hc, *u, prev["ga"],
                                      prev["hi"])
         dig = _scalars(a_d, b_d, gc, hc, wr2, mk)       # [B*64, m]
-        pts = msm_serial.points_from_cols(
-            msm_serial.msm_digits_t(dig, table.src, table.m,
-                                    layout=table.layout))
-        chs = []
-        for i, (t, (L_vec, R_vec)) in enumerate(zip(transcripts, outs)):
-            L_vec.append(pts[2 * i].compress())
-            R_vec.append(pts[2 * i + 1].compress())
-            append_point(t, b"L", L_vec[-1])
-            append_point(t, b"R", R_vec[-1])
-            ch = challenge_scalar(t, b"u").v % L
-            chs += [ch, pow(ch, L - 2, L)]
-        u = flvec.to_mont(chs, dev).view(-1, 2, 1, fl.NW).unbind(1)
+        enc = ristretto_device.ristretto_compress(msm_serial.msm_digits_t(
+            dig, table.src, table.m, layout=table.layout)).view(-1, 2, 32)
+        state, meta, u_rows = strobe_device.transcript_round(state, meta,
+                                                             enc)
+        encs.append(enc)
+        u = u_rows[:, :, None].unbind(1)                 # [B, 1, NW] each
     a_d, b_d, _, _ = _fold(a_d, b_d, gc, hc, *u, masks[-1]["ga"],
                            masks[-1]["hi"])
-    ab = fl.limbs_to_ints(torch.stack([a_d[:, 0], b_d[:, 0]], dim=1))
-    return [(L_vec, R_vec, ab[2 * i], ab[2 * i + 1])
-            for i, (L_vec, R_vec) in enumerate(outs)]
+    return _finish(transcripts, encs, a_d[:, 0], b_d[:, 0], state, meta)

@@ -29,7 +29,12 @@ One MSM of k scalar vectors over an n-point source:
   K5       horner: one warp per vector, windows high to low, c doublings
            and one add per window, each field multiplication of a point
            operation spread over 8 lanes.
-  readback the k extended points, once; compressed on the host.
+  K7       point_sum (point chunks only, below): the chunks' window sums
+           added lane-wise in one launch.
+  result   the k extended points [4, NL, k] on the device; the caller
+           reads them back (points_from_cols) or compresses them there
+           (msm_digits_enc: ops/ristretto_device.ristretto_compress, uint8
+           [k, 32] encodings).
 
 Layouts of the bucket accumulation (`LAYOUTS`, the `layout` argument of
 msm_digits_t / GeneratorTable, engine.register's `msm_layout`; the JAX
@@ -61,11 +66,12 @@ Point chunks: a source of more than POINT_CHUNK = 2^17 points is cut into
 contiguous chunks of at most 2^17 points.  Each chunk runs schedule -> K1
 -> K3 -> K4 to its [4, NL, k*W] window sums, with idx pointing into the
 one [2n+1, ROW] source (rows lo..hi, n+lo..n+hi and the identity 2n: no
-per-chunk copy), and the window sums of the chunks are added lane-wise by
-K7 (`point_add`, D-1 launches for D chunks) before one K5.  On the H100 a
-chunk's two row ranges (2 x 16 MB) fit in the 50 MB L2, where a 2^17-gens
-table's rows (64 MB) do not (a 2^16-gens table fits whole: there K1's time
-per entry is the same with and without chunks, PERF.md).
+per-chunk copy), and the D chunks' window sums, stacked [D, 4, NL, k*W],
+are added lane-wise in chunk order by one K7 launch (`point_sum`) before
+one K5.  On the H100 a chunk's two row ranges (2 x 16 MB) fit in the 50
+MB L2, where a 2^17-gens table's rows (64 MB) do not (a 2^16-gens table
+fits whole: there K1's time per entry is the same with and without
+chunks, PERF.md).
 
 Round chunks: when a point chunk's T*P slots pass SLOT_BUDGET = 18 * 2^20
 (the JAX package's `_SLOT_BUDGET`, so the same launches chunk in both
@@ -82,10 +88,11 @@ Stacked vectors: one launch takes at most max_stack_k() = 11 vectors (the
 JAX package's cap, so batched proofs group as they do there); wider digit
 matrices split along the vector axis.
 
-Two entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
-signed digits already on the device (the commitments, the device IPA and
-the verifier's table MSM) and returns the points as device columns, read
-back by the caller.
+Entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
+signed digits already on the device (the device IPA and the verifier's
+table MSM) and returns the points as device columns, read back by the
+caller; `msm_digits_enc` (the commitments, the IPA rounds) returns their
+encodings, compressed on the device.
 
 Not ported, because they serve the TPU: the static tight/safe plans and
 their overflow re-run (remote round trips), the Mosaic/VMEM constants (lane
@@ -96,7 +103,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import curve, fp
+from . import curve, fp, ristretto_device
 from .msm import signed_digits
 from .. import native
 from ..core.ristretto import RistrettoPoint, batch_normalize, P as _P, D as _D
@@ -525,33 +532,42 @@ def horner_plain(ws, k):
 
 
 # ---------------------------------------------------------------------------
-# K7: lane-wise add (the chunk combine)
+# K7: lane-wise sum over point chunks (the chunk combine)
 
-def point_add(p, q):
-    """p, q int32 [4, NL, n] -> int32 [4, NL, n], lane i = p_i + q_i.
+def point_sum(ws):
+    """ws int32 [D, 4, NL, n] (the window sums of D point chunks) -> int32
+    [4, NL, n], lane i = ws[0]_i + ws[1]_i + ... + ws[D-1]_i, added in
+    chunk order, as canonical limbs.
 
     Replaces bulletproof_gadgets_tpu/ops/pallas_curve.py:_padd_kernel
-    (padd_cols, 512-lane blocks).  Bound on the H100: at the chunk combine's
-    k*W = 32-96 lanes, the latency of one unified add (9 field muls) by one
-    thread; at wide n, the 9 field muls per lane against 480 bytes moved.
-    Design: one thread per lane, loads and stores coalesced across the
-    warp (consecutive lanes are consecutive addresses of every limb)."""
-    native.check(p, "p", (4, NL, None))
-    native.check(q, "q", tuple(p.shape))
-    lib = native.kernels_for(p, q)
+    (padd_cols, 512-lane blocks, launched D - 1 times over D chunks).
+    Bound on the H100: at the chunk combine's k*W = 32-352 lanes, latency:
+    one launch and one lane's chain of D - 1 unified adds (9 field muls
+    each) with its canonicalizations, ~22 us at D = 2 (PERF.md); at wide
+    n, the 9 field muls per lane and chunk against 160 bytes read per
+    lane and chunk.  Design (csrc/msm_kernels.cu): one launch for all D
+    chunks (D - 1 before), one thread per lane on the radix-2^32 core
+    (csrc/field32.cuh), loads and stores coalesced across the warp."""
+    native.check(ws, "ws", (None, 4, NL, None))
+    if ws.shape[0] < 1:
+        raise ValueError("ws: no chunks")
+    lib = native.kernels_for(ws)
     if lib is None:
-        return point_add_plain(p, q)
-    n = p.shape[2]
-    out = torch.empty_like(p)
-    if n == 0:
-        return out
-    native.launched("point_add", lib.bpg_point_add(
-        p.data_ptr(), q.data_ptr(), n, out.data_ptr(), native.stream(p)))
+        return point_sum_plain(ws)
+    d, _, _, n = ws.shape
+    out = torch.empty((4, NL, n), dtype=torch.int32, device=ws.device)
+    if n:
+        native.launched("point_sum", lib.bpg_point_sum(
+            ws.data_ptr(), d, n, out.data_ptr(), native.stream(ws)))
     return out
 
 
-def point_add_plain(p, q):
-    return curve.stack(curve.padd(curve.unstack(p), curve.unstack(q)))
+def point_sum_plain(ws):
+    """The chained curve.padd over the chunks, then fp.canonical."""
+    acc = curve.unstack(ws[0])
+    for part in ws[1:]:
+        acc = curve.padd(acc, curve.unstack(part))
+    return curve.stack(tuple(fp.canonical(c) for c in acc))
 
 
 # ---------------------------------------------------------------------------
@@ -709,8 +725,8 @@ def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
     [4, NL, k] extended points (no readback but the schedule's counts, one
     per chunk).  More than max_stack_k() vectors split into launches of at
     most that many.  Sources of more than `point_chunk` (default
-    POINT_CHUNK) points run in chunks whose window sums K7 adds before
-    Horner; a chunk of more than `slot_budget` (default SLOT_BUDGET; 0:
+    POINT_CHUNK) points run in chunks whose window sums one K7 launch adds
+    before Horner; a chunk of more than `slot_budget` (default SLOT_BUDGET; 0:
     no limit) T*P slots runs its rounds in chunks (K1, then K2; K8, then
     K9 under the cols layout).  `layout` is one of LAYOUTS (`accumulate`);
     every layout gives the same limbs."""
@@ -728,13 +744,20 @@ def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
                           for v in range(0, k, k_max)], dim=2)
     chunk = point_chunk or POINT_CHUNK
     budget = SLOT_BUDGET if slot_budget is None else slot_budget
-    ws = None
+    parts = []
     for lo in range(0, max(n, 1), chunk):
         s = schedule(digits_t[:, lo:lo + chunk], n, lo)
-        part = window_sums(bucket_merge(accumulate(src, s, budget, layout),
-                                        s.offs, s.sub))
-        ws = part if ws is None else point_add(ws, part)
+        parts.append(window_sums(bucket_merge(
+            accumulate(src, s, budget, layout), s.offs, s.sub)))
+    ws = parts[0] if len(parts) == 1 else point_sum(torch.stack(parts))
     return horner(ws, k)
+
+
+def msm_digits_enc(digits_t, src, n: int, layout: str = "rows"):
+    """msm_digits_t's points, compressed on the device: uint8 [k, 32]
+    RFC 9496 encodings (ops/ristretto_device.ristretto_compress)."""
+    return ristretto_device.ristretto_compress(
+        msm_digits_t(digits_t, src, n, layout=layout))
 
 
 def msm_many_digits_t(digits_t: np.ndarray, src, n: int,
@@ -763,10 +786,10 @@ class GeneratorTable:
     """Device-resident MSM table over [G_0..G_{N-1} | H_0..H_{N-1} | B |
     B_blinding]: the source rows upload once per proof size; every prover
     and verifier MSM against it is one launch chain from device digits
-    (`msm_digits`, `supports_digits`), and the device IPA (ops/ipa_fused)
-    runs `msm_digits_t` on `src` directly, each in the table's `layout`
-    (LAYOUTS).  On-device point encoding (`msm_enc`) comes with the device
-    Ristretto slice."""
+    (`msm_digits`, `supports_digits`; `msm_digits_enc_launch` / `_finish`
+    compress the points on the device and read back their encodings), and
+    the device IPA (ops/ipa_fused) runs `msm_digits_t` on `src` directly,
+    each in the table's `layout` (LAYOUTS)."""
 
     __slots__ = ("N", "m", "src", "layout")
     supports_digits = True
@@ -794,3 +817,13 @@ class GeneratorTable:
         """Device digits int8 [k*W, m] (ops/flvec) -> k host points."""
         return points_from_cols(msm_digits_t(digits_t, self.src, self.m,
                                              layout=self.layout))
+
+    def msm_digits_enc_launch(self, digits_t):
+        """Device digits int8 [k*W, m] -> their MSM's encodings, uint8
+        [k, 32] on the device (finish with msm_digits_enc_finish)."""
+        return msm_digits_enc(digits_t, self.src, self.m, self.layout)
+
+    @staticmethod
+    def msm_digits_enc_finish(pending):
+        """-> k 32-byte encodings (one readback)."""
+        return [bytes(row) for row in pending.cpu().numpy()]

@@ -14,7 +14,7 @@ Phases (one line each; any failure raises and exits non-zero):
      K9 and K10 also on crafted rows and carried pools whose coordinates
      sit at the edges of their radix-2^32 core (EDGE_VALUES) and on 2^16
      seeded random lanes x 8 rounds, each against its plain version and
-     K8/K10 against K1 (K9 against K2); K1-K6's and K8-K10's registers and
+     K8/K10 against K1 (K9 against K2); every kernel's registers and
      spills from the build, and K3's, K4's and K5's times as multiples of
      K1's on the same launch (K3, K4 and K5 are held against their plain
      versions at k = 9 too, after phase 6 has recorded the stacked
@@ -29,16 +29,20 @@ Phases (one line each; any failure raises and exits non-zero):
      lang.verify.verify under the pinned seed, once first and once warm:
      proof and .coms sha256 equal to the JAX package's, verify true, a
      tampered proof false, wall times, the device IPA run for every device
-     table with its folds, the chunked table MSMs counted, the host
-     flattening / exp_iter / digit recode never called for example and
-     merkle32, and every kernel launched by that run (launch counters
-     reset just before it, read just after);
-  5. K7 (the lane-wise add of the chunk combine) against its plain version
-     on merkle32's own chunk window sums recorded from that run, and on
-     one wide launch (2^17 lanes of real points); K1's time per entry on
-     merkle32's commitment MSM with and without point chunks; K6 against
-     its plain version on merkle32's fold recorded from that run (65,536
-     generators folded 16-fold: 8,192 outputs of 16 terms), with times;
+     table with its folds, the chunked table MSMs counted (one K7 launch
+     each), the host flattening / exp_iter / digit recode never called for
+     example and merkle32, and every kernel launched by that run (launch
+     counters reset just before it, read just after), the commitments'
+     compression and the IPA's transcript included;
+  5. K7 (point_sum, the chunk combine) against its plain version on
+     merkle32's own chunk window sums recorded from that run, on one wide
+     launch (2^17 lanes of real points) and on merkle32's commitment MSM
+     in 17 point chunks of 2^13 (one K7 launch, encodings equal to the
+     unchunked MSM's); the time of a launch that does almost nothing;
+     K1's time per entry on merkle32's commitment MSM with and without
+     point chunks; K6 against its plain version on merkle32's fold
+     recorded from that run (65,536 generators folded 16-fold: 8,192
+     outputs of 16 terms), with times;
   6. the batch path (lang.batch.prove_batch / verify_batch, launch counters
      reset just before it and read just after): the two batch pins of
      tests/port_pins.json (three 16-bit BOUND witnesses on a host table
@@ -68,13 +72,24 @@ Phases (one line each; any failure raises and exits non-zero):
      merkle32 x 3 stacked byte-equal to the rows batch of phase 6 and
      verifying, with the launch counters reset before each layout's run and
      read after it (cols must launch K8 and K9 and no K1/K2; flat K10 and
-     no K1/K2/K8/K9).
+     no K1/K2/K8/K9);
+ 10. the device transcript's kernels (ristretto_compress: MSM points to
+     RFC 9496 bytes; transcript_round: an IPA round's Merlin absorbs,
+     challenge and F_l inversion) against their plain versions (tolerance
+     0) on merkle32's warm prove recorded in phase 4 and on edge inputs
+     (the identity and random points with carried limbs, also against the
+     host's bytes; transcripts at eight byte positions over four rounds;
+     64 chosen challenge strings), with times and bounds; both are one
+     thread's chain, so each also gets a latency bound: its chain of
+     dependent field products times one product's latency, measured by a
+     probe on one thread.
 Then the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the larger of its products, PRODUCTS_PER_MUL
-a field mul, over the card's int32 multiply rate and its bytes over the
-memory rate; launches are the single-proof path's, the batch path's and
-the two layout runs' together), and the last line {"ok": true, "device":
-{...}}.
+a field mul (the two one-thread kernels: their word products, a squaring
+at its distinct pairs), over the card's int32 multiply rate and its bytes
+over the memory rate; launches
+are the single-proof path's, the batch path's and the two layout runs'
+together), and the last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -99,13 +114,20 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "horner": (MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:921"),
     "ladder_fold": ("bulletproof_gadgets_tpu_torch/csrc/ipa_fold.cu",
                     "bulletproof_gadgets_tpu/ops/ipa_fold.py:170"),
-    "point_add": (MSM_CU, "bulletproof_gadgets_tpu/ops/pallas_curve.py:178"),
+    "point_sum": (MSM_CU, "bulletproof_gadgets_tpu/ops/pallas_curve.py:178"),
     "bucket_accumulate_cols": (
         MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:801"),
     "bucket_accumulate_cols_cont": (
         MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:828"),
     "bucket_accumulate_flat": (
         MSM_CU, "bulletproof_gadgets_tpu/ops/msm_serial.py:901"),
+    # no Pallas kernel: the JAX package runs these as jnp under jit
+    "ristretto_compress": (
+        "bulletproof_gadgets_tpu_torch/csrc/ristretto.cu",
+        "bulletproof_gadgets_tpu/ops/ristretto_device.py:173"),
+    "transcript_round": (
+        "bulletproof_gadgets_tpu_torch/csrc/transcript.cu",
+        "bulletproof_gadgets_tpu/ops/ipa_fused.py:122"),
 }
 # the bucket-accumulation kernels of each layout (ops/msm_serial.LAYOUTS)
 LAYOUT_KERNELS = {
@@ -128,6 +150,22 @@ BYTES_PER_S = 3.35e12
 PRODUCTS_PER_MUL = 80
 PRODUCTS_PER_MUL_10LIMB = 100
 MULS = {"madd": 7, "padd": 9, "dbl": 8, "padd_cached": 8, "inv": 265}
+# The one-thread kernels' work in word products, a squaring counted at the
+# 36 distinct pairs of its 8 x 8 square: F_p (fe8) squaring 36 + 16 and
+# product 64 + 16 (the fold); F_l (fl8, Montgomery) squaring 36 + 48 and
+# product 64 + 48 (m = t0 l' and m * l's 5 non-zero words of l, 8 times).
+# ristretto_compress, per point: 255 squarings (251 in z^((p-5)/8)) and 29
+# products (the three by sqrt_ratio_m1's u = 1 left out); 279 of them form
+# one dependent chain.  transcript_round, per transcript: 252 squarings and
+# 50 products (2 for the wide reduction, 14 + 32 for the inversion's table
+# and windows, 2 conversions to ops/fl rows); 286 in one chain (the table
+# and one conversion off it).  Its one or two f1600 (~5k 32-bit logic ops
+# each, on the ALU pipe beside the multiply pipe) are left out of both.
+COMPRESS_WORD_PRODUCTS = 255 * (36 + 16) + 29 * (64 + 16)
+COMPRESS_CHAIN = 279
+TRANSCRIPT_WORD_PRODUCTS = 252 * (36 + 48) + 50 * (64 + 48)
+TRANSCRIPT_CHAIN = 286
+POINT_CHUNK_D17 = 1 << 13       # merkle32's 131,074-point table: 17 chunks
 BOUND64_BATCH = 8               # witnesses of phase 8's batch
 
 
@@ -167,10 +205,14 @@ def bound(field_muls, tensors, products=PRODUCTS_PER_MUL):
             "operations" if ops_s >= bytes_s else "bytes")
 
 
-def compare(name, label, kern, plain, shape, muls, tensors):
+def compare(name, label, kern, plain, shape, muls, tensors,
+            chain_ms=None):
     """One kernel against its plain version: equal (tolerance 0), times
     (CUDA events; kernel mean of 5, plain 1, each after a warm-up) and
-    bound.  Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by)."""
+    bound.  With chain_ms (a one-thread kernel: muls are then word
+    products, and chain_ms its dependent chain's latency) that latency is
+    printed beside the bound.  Returns (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)."""
     import torch
     t_k, out_k = timed(kern, 5)
     t_p, out_p = timed(plain, 1)
@@ -178,14 +220,46 @@ def compare(name, label, kern, plain, shape, muls, tensors):
     if err != 0 or not torch.equal(out_k, out_p):
         raise AssertionError(f"{name} ({label}): kernel != plain, max abs "
                              f"err {err}")
-    b_ms, b_by = bound(muls, list(tensors) + [out_k])
-    b10_ms, b10_by = bound(muls, list(tensors) + [out_k],
-                           PRODUCTS_PER_MUL_10LIMB)
+    if chain_ms is None:
+        b_ms, b_by = bound(muls, list(tensors) + [out_k])
+        b10_ms, b10_by = bound(muls, list(tensors) + [out_k],
+                               PRODUCTS_PER_MUL_10LIMB)
+        beside = f"at 100 products per mul {b10_ms:.4g} ms, {b10_by}"
+    else:
+        b_ms, b_by = bound(muls, list(tensors) + [out_k], 1)
+        beside = f"latency bound {chain_ms:.4g} ms"
     say(f"kernel {name} [{label}, {shape}]: equal to plain (tolerance 0, "
         f"max abs err {err}); {t_k:.3f} ms vs plain {t_p:.3f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}; at 100 products per mul {b10_ms:.4f} ms, "
-        f"{b10_by})")
+        f"{b_ms:.4g} ms ({b_by}; {beside})")
     return err, t_k, t_p, b_ms, b_by
+
+
+def product_latency(device, n=4096):
+    """ms of one dependent field product on one thread: fe8_mul (the
+    compression's) and fl8_mont_mul (the challenge's), from latency probes
+    squaring n times and once (CUDA events, mean of 5 each)."""
+    import torch
+    from bulletproof_gadgets_tpu_torch import native
+    lib = native.load()
+    x = torch.from_numpy(np.array(            # < 2^252 < l
+        [0x1234567, 0x89abcdef, 0x2468ace, 0x13579bdf, 0xfedcba9,
+         0x76543210, 0xdeadbeef, 0x0abcdef0], dtype=np.uint32).view(
+             np.int32)).to(device)
+    out = torch.empty_like(x)
+    lat = {}
+    for name, fn in (("fe8_mul", lib.bpg_fe8_sqr_chain),
+                     ("fl8_mont_mul", lib.bpg_fl8_sqr_chain)):
+        def run(m, fn=fn):
+            rc = fn(x.data_ptr(), m, out.data_ptr(), native.stream(x))
+            if rc:
+                raise RuntimeError(f"{name} probe: cudaError {rc}")
+        lat[name] = (timed(lambda: run(n), 5)[0]
+                     - timed(lambda: run(1), 5)[0]) / (n - 1)
+    say(f"one dependent product on one thread: fe8_mul "
+        f"{1e6 * lat['fe8_mul']:.1f} ns, fl8_mont_mul "
+        f"{1e6 * lat['fl8_mont_mul']:.1f} ns (latency probes, {n} "
+        "squarings less one)")
+    return lat
 
 
 def check_kernels(ms, digits, src, n, label, only=None):
@@ -335,12 +409,168 @@ def check_fold(ipa_fold, src, base, dig, label):
                    f"K={k} outputs={n}", muls, (src, base, dig))
 
 
-def check_point_add(ms, p, q, label):
-    """K7 against its plain version: 9 field muls per lane; bytes of the two
-    inputs and the output."""
-    return compare("point_add", label, lambda: ms.point_add(p, q),
-                   lambda: ms.point_add_plain(p, q), f"lanes={p.shape[2]}",
-                   p.shape[2] * MULS["padd"], (p, q))
+def check_point_sum(ms, ws, label):
+    """K7 against its plain version: (D - 1) x 9 field muls per lane; the
+    bytes of the D chunks' window sums and of the sum."""
+    d, _, _, n = ws.shape
+    return compare("point_sum", label, lambda: ms.point_sum(ws),
+                   lambda: ms.point_sum_plain(ws), f"D={d} lanes={n}",
+                   (d - 1) * n * MULS["padd"], (ws,))
+
+
+def d17_msm(ms, rd, digits, src, n):
+    """Phase 5: merkle32's k=3 commitment MSM in point chunks of 2^13
+    (D = 17) against the same MSM in one chunk: equal encodings, one K7
+    launch; then K7 against its plain version on the 17 chunks' window
+    sums."""
+    import torch
+    stacks, point_sum = [], ms.point_sum
+
+    def record_sum(ws):
+        stacks.append(ws)
+        return point_sum(ws)
+    before = ms.LAUNCHES["point_sum"]
+    ms.point_sum = record_sum
+    try:
+        chunked = rd.ristretto_compress(ms.msm_digits_t(
+            digits, src, n, point_chunk=POINT_CHUNK_D17))
+        torch.cuda.synchronize()
+    finally:
+        ms.point_sum = point_sum
+    launched = ms.LAUNCHES["point_sum"] - before
+    whole = rd.ristretto_compress(ms.msm_digits_t(digits, src, n,
+                                                  point_chunk=n))
+    d = stacks[0].shape[0] if stacks else 0
+    if launched != 1 or d != 17 or not torch.equal(chunked, whole):
+        raise AssertionError(f"merkle32 commitments in chunks of "
+                             f"{POINT_CHUNK_D17}: {d} chunks, {launched} K7 "
+                             "launches (want 17, 1), or encodings differ "
+                             "from one chunk's")
+    say(f"merkle32's k=3 commitment MSM ({n} points) in 17 point chunks of "
+        f"{POINT_CHUNK_D17}: one K7 launch, encodings equal to the unchunked "
+        "MSM's")
+    return check_point_sum(ms, stacks[0], "merkle32 commitments, 17 chunks")
+
+
+def launch_floor(ms, device):
+    """Phase 5: what a launch that does almost nothing costs on the card
+    (CUDA events, mean of 100 back-to-back launches): K7 on one lane of two
+    chunks, and a one-element PyTorch fill."""
+    import torch
+    ws = torch.zeros((2, 4, ms.NL, 1), dtype=torch.int32, device=device)
+    one = torch.zeros(1, device=device)
+    t_k7 = timed(lambda: ms.point_sum(ws), 100)[0]
+    t_fill = timed(lambda: one.fill_(1.0), 100)[0]
+    say(f"launch floor: K7 on one lane of two chunks {t_k7:.4f} ms, a "
+        f"one-element fill {t_fill:.4f} ms")
+    return t_k7, t_fill
+
+
+def edge_points(n, seed):
+    """The identity and n - 1 seeded points with Z != 1, as int32 [4, NL,
+    n] limbs, each limb at or above half its width lent to the next one
+    (negative limbs, as the 10-limb kernels write them)."""
+    import torch
+    from bulletproof_gadgets_tpu_torch.core.ristretto import (
+        RISTRETTO_BASEPOINT, RistrettoPoint)
+    from bulletproof_gadgets_tpu_torch.core.scalar import L
+    from bulletproof_gadgets_tpu_torch.ops import fp
+    r = random.Random(seed)
+    pts = [RistrettoPoint.identity()]
+    for _ in range(n - 1):
+        q = RISTRETTO_BASEPOINT.scalar_mul(r.randrange(L))
+        z = r.randrange(1, FIELD_P)
+        pts.append(RistrettoPoint(q.X * z, q.Y * z, q.Z * z, q.T * z))
+    c = np.stack([fp.ints_to_limbs([getattr(p, a) for p in pts])
+                  for a in "XYZT"]).astype(np.int64)
+    for i in range(fp.NL - 1):
+        big = c[:, i] >= 1 << (fp.W[i] - 1)
+        c[:, i] -= big << fp.W[i]
+        c[:, i + 1] += big
+    return torch.from_numpy(c.astype(np.int32)), [p.compress() for p in pts]
+
+
+def edge_transcripts(device, lengths=(0, 10, 60, 100, 120, 140, 150, 160)):
+    """Host transcripts whose STROBE position differs (a prior message of
+    each length, so a round's absorbs cross the 166-byte rate at different
+    bytes) -> their device states and positions."""
+    from bulletproof_gadgets_tpu_torch.ops import strobe_device as sd
+    from bulletproof_gadgets_tpu_torch.utils.merlin import Transcript
+    r = random.Random(len(lengths))
+    ts = []
+    for n in lengths:
+        t = Transcript(b"chip-smoke")
+        t.append_message(b"V", bytes(r.randrange(256) for _ in range(n)))
+        ts.append(t)
+    return sd.snapshot(ts, device)
+
+
+def check_transcript_kernels(rd, sd, rec, device):
+    """Phase 10: ristretto_compress and transcript_round against their
+    plain versions (tolerance 0), with times and bounds, on merkle32's warm
+    prove (its commitments' points and the last IPA round's points, states,
+    positions and encodings, recorded in phase 4) and on edge inputs: the
+    identity and 63 random points with carried limbs (also against the
+    host's encodings); eight transcripts at eight byte positions over four
+    chained rounds; challenge_rows on 64 chosen challenge strings (below
+    and above l, near 2^512)."""
+    import torch
+    from bulletproof_gadgets_tpu_torch.core.scalar import L
+    res = {}
+    lat = product_latency(device)
+
+    def compress(cols, label):
+        k = cols.shape[2]
+        return compare("ristretto_compress", label,
+                       lambda: rd.ristretto_compress(cols),
+                       lambda: rd.compress_cols(cols), f"k={k}",
+                       k * COMPRESS_WORD_PRODUCTS, (cols,),
+                       COMPRESS_CHAIN * lat["fe8_mul"])
+
+    def flat(out):
+        return torch.cat([out[0].flatten().to(torch.int64),
+                          out[1].flatten().to(torch.int64),
+                          out[2].flatten()])
+
+    def round_(state, meta, enc, label):
+        b = state.shape[0]
+        return compare("transcript_round", label,
+                       lambda: flat(sd.transcript_round(state, meta, enc)),
+                       lambda: flat(sd.transcript_round_plain(state, meta,
+                                                              enc)),
+                       f"B={b}", b * TRANSCRIPT_WORD_PRODUCTS,
+                       (state, meta, enc),
+                       TRANSCRIPT_CHAIN * lat["fl8_mont_mul"])
+    compress(rec["commitments"], "merkle32 commitments")
+    res["ristretto_compress"] = compress(rec["round"], "merkle32 IPA round")
+    cols, want = edge_points(64, 10)
+    cols = cols.to(device)
+    compress(cols, "identity + 63 random points, carried limbs")
+    got = [bytes(r) for r in rd.ristretto_compress(cols).cpu().numpy()]
+    if got != want:
+        raise AssertionError("ristretto_compress != the host's encodings")
+    res["transcript_round"] = round_(*rec["transcript"],
+                                     "merkle32 IPA round")
+    state, meta = edge_transcripts(device)
+    g = torch.Generator().manual_seed(4)
+    for i in range(4):
+        enc = torch.randint(0, 256, (state.shape[0], 2, 32), generator=g,
+                            dtype=torch.uint8).to(device)
+        round_(state, meta, enc, f"8 positions, round {i}")
+        state, meta, _ = sd.transcript_round(state, meta, enc)
+    vals = [0, 1, L - 1, L, L + 1, (1 << 256) - 1, 1 << 256, L << 256,
+            (1 << 512) - 1, (1 << 512) - L]
+    r = random.Random(64)
+    chs = [v.to_bytes(64, "little") for v in vals] + [
+        bytes(r.randrange(256) for _ in range(64)) for _ in range(54)]
+    ch = torch.tensor([list(c) for c in chs], dtype=torch.uint8,
+                      device=device)
+    got, plain = sd.challenge_rows(ch), sd.challenge_rows_plain(ch)
+    if not torch.equal(got, plain):
+        raise AssertionError("challenge_rows != plain on chosen strings")
+    say("transcript_round's F_l part (challenge_rows) equal to plain on 64 "
+        "chosen challenge strings (tolerance 0)")
+    return res
 
 
 def k1_per_entry(ms, digits, src, n, chunk):
@@ -458,8 +688,8 @@ def batch_path(pins, ms):
     finally:
         ms.bucket_accumulate_cont, ms.msm_digits_t = cont, msm_digits_t
         mimc_kernels.mimc_hash_batch = hash_batch
-    idle = [k for k, v in launches.items()
-            if v == 0 and k not in OTHER_LAYOUTS]
+    idle = [k for k in KERNELS
+            if launches[k] == 0 and k not in OTHER_LAYOUTS]
     if idle:
         raise AssertionError(f"kernels not launched by the batch path: "
                              f"{idle}")
@@ -773,7 +1003,8 @@ def main() -> int:
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
     from bulletproof_gadgets_tpu_torch.lang.verify import verify
     from bulletproof_gadgets_tpu_torch.ops import (
-        engine, ipa_fold, ipa_fused, msm_serial as ms)
+        engine, ipa_fold, ipa_fused, msm_serial as ms,
+        ristretto_device as rd, strobe_device as sd)
     from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
 
     with open(PINS) as f:
@@ -840,7 +1071,10 @@ def main() -> int:
                          ("K3", "bucket_merge_kernel"),
                          ("K4", "window_sums_kernel"),
                          ("K5", "horner_kernel"),
-                         ("K6", "ladder_fold_kernel")):
+                         ("K6", "ladder_fold_kernel"),
+                         ("K7", "point_sum_kernel"),
+                         ("compression", "ristretto_compress_kernel"),
+                         ("transcript", "transcript_round_kernel")):
         say(f"ptxas {name} {kernel}: {ptxas_usage(native.BUILD_LOG, kernel)}")
     for label, res in (("k=3 commitment", results),
                        ("k=1 verifier", verifier)):
@@ -876,9 +1110,11 @@ def main() -> int:
     ipa_runs = []                                # [n, folds] per argument
     host_calls = {}                              # host loops the path ran
     fused_create, materialize = ipa_fused.create, ipa_fold.materialize
-    point_add = ms.point_add
+    point_sum = ms.point_sum
     combines, chunked = [], [0]                  # merkle32's K7 inputs
     m_folds = []                                 # merkle32's K6 inputs
+    compress, t_round = rd.ristretto_compress, sd.transcript_round
+    rec = {}                  # merkle32's warm inputs of the new kernels
 
     def count_ipa(transcript, table, w, G_factors, *a, **kw):
         ipa_runs.append([len(G_factors), 0])
@@ -899,10 +1135,20 @@ def main() -> int:
             m_folds.append((src, base, dig))
         return ladder_fold(src, base, dig)
 
-    def record_add(p, q):
+    def record_sum(ws):
         if not combines:
-            combines.append((p, q))
-        return point_add(p, q)
+            combines.append(ws)
+        return point_sum(ws)
+
+    def record_compress(cols):
+        if name == "merkle32":
+            rec["commitments" if cols.shape[2] == 3 else "round"] = cols
+        return compress(cols)
+
+    def record_round(state, meta, enc):
+        if name == "merkle32":
+            rec["transcript"] = (state, meta, enc)
+        return t_round(state, meta, enc)
 
     def host_spy(name, fn):
         def spy(*a, **kw):
@@ -918,7 +1164,8 @@ def main() -> int:
                                     f"{name}", fn))
     ipa_fused.create, ipa_fold.materialize = count_ipa, count_fold
     ipa_fold.ladder_fold = record_fold4
-    ms.msm_digits_t, ms.point_add = record_chunks, record_add
+    ms.msm_digits_t, ms.point_sum = record_chunks, record_sum
+    rd.ristretto_compress, sd.transcript_round = record_compress, record_round
     for name in ms.LAUNCHES:
         ms.LAUNCHES[name] = 0
     try:
@@ -970,14 +1217,16 @@ def main() -> int:
     finally:
         ipa_fused.create, ipa_fold.materialize = fused_create, materialize
         ipa_fold.ladder_fold = ladder_fold
-        ms.msm_digits_t, ms.point_add = msm_digits_t, point_add
+        ms.msm_digits_t, ms.point_sum = msm_digits_t, point_sum
+        rd.ristretto_compress, sd.transcript_round = compress, t_round
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    if chunked[0] == 0 or launches["point_add"] != chunked[0]:
+    if chunked[0] == 0 or launches["point_sum"] != chunked[0]:
         raise AssertionError(f"merkle32: {chunked[0]} chunked MSMs, "
-                             f"{launches['point_add']} K7 launches")
-    idle = [k for k, v in launches.items()
-            if v == 0 and k != "bucket_accumulate_cont"
+                             f"{launches['point_sum']} K7 launches (want "
+                             "one per chunked MSM)")
+    idle = [k for k in KERNELS
+            if launches[k] == 0 and k != "bucket_accumulate_cont"
             and k not in OTHER_LAYOUTS]
     if idle:
         raise AssertionError(f"kernels not launched by the main path: {idle}")
@@ -987,14 +1236,16 @@ def main() -> int:
     #    with and without point chunks on merkle32's commitment MSM; K6 on
     #    merkle32's fold
     check_fold(ipa_fold, *m_folds[0], "merkle32 fold")
-    results["point_add"] = check_point_add(ms, *combines[0],
+    results["point_sum"] = check_point_sum(ms, combines[0],
                                            "merkle32 commitment combine")
     m_digits, m_src, m_n = calls[0]
     wide = 1 << 17
     lanes = torch.arange(wide + 1, dtype=torch.int32, device=device)
     p = ms.bucket_accumulate(m_src, lanes[None, :wide].contiguous())
     q = ms.bucket_accumulate(m_src, lanes[None, 1:].contiguous())
-    check_point_add(ms, p, q, "2^17 lanes of table points")
+    check_point_sum(ms, torch.stack([p, q]), "2^17 lanes of table points")
+    d17_msm(ms, rd, m_digits, m_src, m_n)
+    launch_floor(ms, device)
     for chunk in (ms.POINT_CHUNK >> 1, ms.POINT_CHUNK, 2 * ms.POINT_CHUNK):
         ns, total, entries = k1_per_entry(ms, m_digits, m_src, m_n, chunk)
         say(f"K1 on merkle32's k=3 commitment MSM ({m_n} points) in chunks "
@@ -1027,6 +1278,9 @@ def main() -> int:
     layout_launches = [layout_path(pins, ms, engine, layout,
                                    rows_batch["merkle32"])
                        for layout in ("cols", "flat")]
+
+    # 10. the device transcript's kernels against their plain versions
+    results.update(check_transcript_kernels(rd, sd, rec, device))
 
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)

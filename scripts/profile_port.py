@@ -1,6 +1,8 @@
 """Where the PyTorch port's prove and verify time goes, on one NVIDIA GPU.
 
     python3 scripts/profile_port.py [--statement merkle32] [--out FILE]
+    python3 scripts/profile_port.py --ipa example,merkle32 --batch example \
+        [--root DIR] [--label NAME]
 
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
 then --reps times warm (end-to-end wall times), then once warm with every
@@ -8,7 +10,7 @@ stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
 stages (host digit recode, schedule incl. its count readback, the idx
 rows, each kernel, the result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
 table, point-chunked past msm_serial.POINT_CHUNK points, its chunks
-combined by K7 `point_add`), the device vectors (`flatten.flatten`, the
+combined by K7 `point_sum`), the device vectors (`flatten.flatten`, the
 commitment digits, `ProverVectors` build / t_poly / lr / factors,
 `verifier_device.table_digits_dev`), the host loops they replace
 (`Prover._flattened_constraints`, `Verifier._flattened_constraints`,
@@ -21,16 +23,29 @@ for the device busy time:
 the union of the card's own activity intervals (kernels, copies, memsets),
 so no host operator is counted beside the device work it issued.
 Prints one JSON object (also written to --out).
+
+--ipa (a comma-separated list of pinned statements) times the inner-product
+argument alone instead: one warm prove records the arguments of
+`ipa_fused.create` (the host transcript copied before the call), which are
+then replayed --reps times (host clock around a synchronize: seconds per
+argument), once counting readbacks (`Tensor.cpu`, `.item`, `.tolist` and
+`bool` of CUDA tensors) and synchronizing calls (torch.cuda sync debug
+mode), and once under torch.profiler (device busy time and idle share).
+--batch STATEMENT does the same for `ipa_fused.create_batched` of a batch of
+three proofs of the statement (lang.batch.prove_batch).  --root is the
+directory holding `bulletproof_gadgets_tpu_torch` (default: this checkout),
+so that two checkouts can be measured in turns on one card.
 """
 import argparse
 import functools
+import importlib
+import importlib.util
 import json
 import os
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
 
 
 def device_activity(prof):
@@ -55,17 +70,125 @@ def device_activity(prof):
     return busy_ns / 1e6, by_name
 
 
+def _replay(fn, record, reps):
+    """Time, count and profile `fn` on the recorded arguments (a fresh
+    copy of their host transcripts each run) -> a dict of results."""
+    import copy
+    import warnings
+    import torch
+
+    def run():                  # the transcripts copied before the clock
+        args = (copy.deepcopy(record[0]),) + tuple(record[1:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    run()
+    secs = []
+    for _ in range(reps):
+        out, sec = run()
+        secs.append(sec)
+    counts = {}
+    saved = {}
+    for name in ("cpu", "item", "tolist", "__bool__"):
+        real = getattr(torch.Tensor, name)
+        saved[name] = real
+
+        def spy(self, *a, _real=real, _name=name, **kw):
+            if self.is_cuda:
+                counts[_name] = counts.get(_name, 0) + 1
+            return _real(self, *a, **kw)
+        setattr(torch.Tensor, name, spy)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for name, real in saved.items():
+            setattr(torch.Tensor, name, real)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = run()[1]
+    busy_ms, _ = device_activity(prof)
+    rounds = len((out[0] if isinstance(out, list) else out)[0])
+    readbacks = sum(counts.values())
+    return {"s_per_call": sorted(secs), "rounds": rounds,
+            "readbacks": counts, "readbacks_per_round": readbacks / rounds,
+            "syncs": syncs, "syncs_per_round": syncs / rounds,
+            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / 1e3 / wall}
+
+
+def ipa_main(args, pins):
+    """--ipa / --batch: the argument alone, replayed (module docstring)."""
+    import copy
+    import torch
+    from bulletproof_gadgets_tpu_torch.lang.batch import prove_batch
+    from bulletproof_gadgets_tpu_torch.lang.prove import prove
+    from bulletproof_gadgets_tpu_torch.ops import engine, ipa_fused
+    from bulletproof_gadgets_tpu_torch.utils import rng
+    engine.register("cuda")
+    res = {"label": args.label, "root": os.path.abspath(args.root),
+           "device": torch.cuda.get_device_name(0), "ipa": {},
+           "batch": {}}
+    for attr, names, key in (("create", args.ipa, "ipa"),
+                             ("create_batched", args.batch, "batch")):
+        real = getattr(ipa_fused, attr)
+        for name in filter(None, (names or "").split(",")):
+            st = pins["statements"][name]
+            records = []
+
+            def spy(*a, **kw):
+                records.append((copy.deepcopy(a[0]),) + a[1:])
+                return real(*a, **kw)
+            rng.set_seed(pins["seed"])
+            if key == "ipa":
+                prove(name, st["instance"], st["witness"], st["gadgets"], [])
+            else:
+                prove_batch(name, st["instance"], [st["witness"]] * 3,
+                            st["gadgets"])
+            setattr(ipa_fused, attr, spy)
+            try:
+                rng.set_seed(pins["seed"])
+                if key == "ipa":
+                    prove(name, st["instance"], st["witness"],
+                          st["gadgets"], [])
+                else:
+                    prove_batch(name, st["instance"], [st["witness"]] * 3,
+                                st["gadgets"])
+            finally:
+                setattr(ipa_fused, attr, real)
+            rng.set_seed(None)
+            res[key][name] = _replay(real, records[0], args.reps)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--statement", default="merkle32")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--ipa", default=None)
+    ap.add_argument("--batch", default=None)
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--label", default="")
     args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
 
     import torch
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
         return 1
+    with open(os.path.join(ROOT, "tests", "port_pins.json")) as f:
+        pins = json.load(f)
+    if args.ipa or args.batch:
+        return _emit(ipa_main(args, pins), args.out)
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
     from bulletproof_gadgets_tpu_torch.lang.verify import verify
     from bulletproof_gadgets_tpu_torch.core import r1cs
@@ -74,8 +197,6 @@ def main(argv=None) -> int:
         prover_device, verifier_device)
     from bulletproof_gadgets_tpu_torch.utils import rng
 
-    with open(os.path.join(ROOT, "tests", "port_pins.json")) as f:
-        pins = json.load(f)
     st = pins["statements"][args.statement]
     engine.register("cuda")
 
@@ -114,7 +235,7 @@ def main(argv=None) -> int:
     stages = [(ms, n) for n in (
         "signed_digits", "schedule", "idx_rows", "bucket_accumulate",
         "bucket_accumulate_cont", "bucket_merge",
-        "window_sums", "point_add", "horner", "points_from_cols",
+        "window_sums", "point_sum", "horner", "points_from_cols",
         "msm_many", "msm_digits_t")] + [
         (flatten, "flatten"), (prover_device, "commitment_digits"),
         (pv, "__init__"), (pv, "t_poly"), (pv, "lr"), (pv, "factors"),
@@ -123,6 +244,13 @@ def main(argv=None) -> int:
         (r1cs.Verifier, "_flattened_constraints"), (r1cs, "exp_iter"),
         (ipa_fused, "create"), (ipa_fused, "_fold"), (ipa_fused, "_scalars"),
         (ipa_fold, "materialize")]
+    for mod_name, n in (("ristretto_device", "ristretto_compress"),
+                        ("strobe_device", "transcript_round")):
+        if importlib.util.find_spec(
+                f"bulletproof_gadgets_tpu_torch.ops.{mod_name}"):
+            stages.append((importlib.import_module(
+                f"bulletproof_gadgets_tpu_torch.ops.{mod_name}"), n))
+    stages = [(mod, n) for mod, n in stages if hasattr(mod, n)]
     saved = [(mod, n, getattr(mod, n)) for mod, n in stages]
     for mod, n, fn in saved:
         setattr(mod, n, timed(n if mod is ms else
@@ -158,11 +286,15 @@ def main(argv=None) -> int:
            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / 1e3 / wall,
            "top_device_ms": top}
+    return _emit(res, args.out)
+
+
+def _emit(res, out):
     line = json.dumps(res)
     print(line)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     return 0
 

@@ -153,14 +153,16 @@ def test_point_ops_match_jax_and_host():
 
 
 def test_point_add_plain_matches_jax_padd_cols():
-    """K7's plain version (msm_serial.point_add on CPU tensors) against the
-    JAX package's padd_cols on one 512-lane block (Pallas interpret mode)
-    and the host group law: lane i adds p[i % 7] and q[(3 i) % 7]."""
+    """K7's plain version (msm_serial.point_sum on CPU tensors) over two
+    chunks against the JAX package's padd_cols on one 512-lane block
+    (Pallas interpret mode) and the host group law: lane i adds p[i % 7]
+    and q[(3 i) % 7]."""
     p, q = _points(5, 6), _points(6, 6)[::-1]
     lanes = np.arange(512)
     pp = [p[i % 7] for i in lanes]
     qq = [q[3 * i % 7] for i in lanes]
-    got = ms.point_add(curve.stack(_port_pts(pp)), curve.stack(_port_pts(qq)))
+    got = ms.point_sum(torch.stack([curve.stack(_port_pts(pp)),
+                                    curve.stack(_port_pts(qq))]))
     assert got.dtype == torch.int32 and got.shape == (4, fp.NL, 512)
     want = [_affine(a + b) for a, b in zip(pp, qq)]
     assert curve.canonical_affine(curve.unstack(got)) == want

@@ -275,3 +275,92 @@ def test_ipa_matches_jax_host(n, fold_at, folds, monkeypatch):
     assert L_vec == host.L_vec and R_vec == host.R_vec
     assert (a0, b0) == (host.a.v % L, host.b.v % L)
     assert t_host.challenge_bytes(b"x", 32) == t_port.challenge_bytes(b"x", 32)
+
+
+def _host_ipa(label, prior, n, w, h_factors, a, b):
+    """The JAX package's host IPA on a transcript that first absorbs
+    `prior` 32-byte messages -> (proof, transcript after it)."""
+    jpc = JaxPedersen.default()
+    jpts = [JaxPoint(p.X, p.Y, p.Z, p.T) for p in _table(n)]
+    t = JaxTranscript(label)
+    for m in prior:
+        t.append_message(b"V", m)
+    proof = JaxIPP.create(
+        t, jpc.B.scalar_mul(w), [JaxScalar(1)] * n,
+        [JaxScalar(v) for v in h_factors], jpts[:n], jpts[n:2 * n],
+        [JaxScalar(v) for v in a], [JaxScalar(v) for v in b])
+    return proof, t
+
+
+def _port_transcript(label, prior, n):
+    t = Transcript(label)
+    for m in prior:
+        t.append_message(b"V", m)
+    innerproduct_domain_sep(t, n)
+    return t
+
+
+def _no_host_points(monkeypatch):
+    def refuse(cols):
+        raise AssertionError("points_from_cols called by the device IPA")
+    monkeypatch.setattr(ms, "points_from_cols", refuse)
+
+
+@pytest.mark.parametrize("counts", [(1, 1, 1), (0, 3, 1)])
+def test_create_batched_matches_jax_host(counts, monkeypatch):
+    """create_batched over three proofs of a 16-gens table whose
+    transcripts absorbed 1, 1, 1 or 0, 3, 1 commitments first (a group of
+    mixed commitment counts, so three byte positions): each proof's L/R
+    bytes, a0, b0 and transcript state afterwards equal the JAX package's
+    host IPA on the same inputs, and no point is read back."""
+    monkeypatch.setattr(jax_core_msm, "_backend", None)
+    _no_host_points(monkeypatch)
+    n = 16
+    rng = np.random.default_rng(sum(counts))
+    priors = [[rng.bytes(32) for _ in range(c)] for c in counts]
+    args = [(_rand(50 + i, n), _rand(60 + i, n), _rand(70 + i, 2))
+            for i in range(3)]
+    pc = PedersenGens.default()
+    bp = BulletproofGens(n)
+    table = ms.GeneratorTable(list(bp.G(n)), list(bp.H(n)), pc.B,
+                              pc.B_blinding, "cpu")
+    ts = [_port_transcript(b"batch-ipa", p, n) for p in priors]
+    hfs = [[pow(yi, j, L) for j in range(n)] for _, _, (yi, _) in args]
+    outs = ipa_fused.create_batched(
+        ts, table, [w for _, _, (_, w) in args], [[1] * n] * 3, hfs,
+        [a for a, _, _ in args], [b for _, b, _ in args])
+    for (a, b, (_, w)), hf, p, t, out in zip(args, hfs, priors, ts, outs):
+        host, t_host = _host_ipa(b"batch-ipa", p, n, w, hf, a, b)
+        assert out[0] == host.L_vec and out[1] == host.R_vec
+        assert out[2:] == (host.a.v % L, host.b.v % L)
+        assert t.challenge_bytes(b"x", 32) == t_host.challenge_bytes(b"x", 32)
+
+
+def test_create_reads_back_once_per_round(monkeypatch):
+    """A 64-gens argument (6 rounds) with one table fold: no point read
+    back (points_from_cols refuses), and the tensors it reads back are the
+    schedule's bucket counts, one per round, and the one result at the
+    end (Tensor.cpu counted)."""
+    n = 64
+    _no_host_points(monkeypatch)
+    folds, real_fold = [], ipa_fold.materialize
+    monkeypatch.setattr(ipa_fold, "materialize",
+                        lambda *args: folds.append(args[3]) or
+                        real_fold(*args))
+    calls = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu",
+                        lambda self, *a, **kw: calls.append(self.shape)
+                        or real_cpu(self, *a, **kw))
+    pc = PedersenGens.default()
+    bp = BulletproofGens(n)
+    table = ms.GeneratorTable(list(bp.G(n)), list(bp.H(n)), pc.B,
+                              pc.B_blinding, "cpu")
+    t = _port_transcript(b"readbacks", [], n)
+    a, b = _rand(81, n), _rand(82, n)
+    calls.clear()
+    out = ipa_fused.create(t, table, 5, [1] * n, [1] * n, a, b, fold_at=2,
+                           fold_min=4)
+    assert len(out[0]) == 6 and folds == [n]
+    counts = [s for s in calls if s == (2 * ms.W * ms.NB,)]
+    assert len(counts) == 6 and len(calls) == 7

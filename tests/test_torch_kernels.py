@@ -256,27 +256,30 @@ def test_bucket_merge_equals_plain_on_split_buckets(stage_inputs, g):
 
 
 def test_point_add_equals_plain(stage_inputs):
-    """K7 on the k=3 MSM's window sums (the chunk combine's width: 96
-    lanes) and on its whole bucket pool against its plain version."""
+    """K7 (point_sum) on the k=3 MSM's window sums (the chunk combine's
+    width: 96 lanes) and on its whole bucket pool against its plain
+    version, over D = 1, 2 and 17 chunks (the lanes flipped and rolled)."""
     for p in (stage_inputs["ws"], stage_inputs["pool"]):
-        q = p.flip(2).contiguous()
-        before = ms.LAUNCHES["point_add"]
-        got = ms.point_add(p, q)
-        torch.cuda.synchronize()
-        assert ms.LAUNCHES["point_add"] == before + 1
-        assert got.is_cuda and torch.equal(got, ms.point_add_plain(p, q))
+        for d in (1, 2, 17):
+            ws = torch.stack([p.roll(3 * i, 2).flip(2) if i % 2 else
+                              p.roll(5 * i, 2) for i in range(d)])
+            before = ms.LAUNCHES["point_sum"]
+            got = ms.point_sum(ws)
+            torch.cuda.synchronize()
+            assert ms.LAUNCHES["point_sum"] == before + 1
+            assert got.is_cuda and torch.equal(got, ms.point_sum_plain(ws))
 
 
 def test_chunked_msm_equals_host(stage_inputs):
     """The k=3 MSM over the 2050-point table in point chunks of 512 (five
-    chunks, four K7 launches) equals the host MSM."""
+    chunks, one K7 launch) equals the host MSM."""
     src, vecs = stage_inputs["src"], stage_inputs["vecs"]
     digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
     d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
-    before = ms.LAUNCHES["point_add"]
+    before = ms.LAUNCHES["point_sum"]
     cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
                            point_chunk=512)
-    assert ms.LAUNCHES["point_add"] == before + 4
+    assert ms.LAUNCHES["point_sum"] == before + 1
     want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]
@@ -324,3 +327,102 @@ def test_msm_under_layout_equals_host(stage_inputs, layout):
     want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]
+
+
+def _compress_inputs(cuda, stage_inputs):
+    """The k=3 MSM's result (carried limbs from K5), the identity and 29
+    seeded points with Z != 1: int32 [4, NL, 33] on the card."""
+    from bulletproof_gadgets_tpu_torch.core.ristretto import (
+        P, RISTRETTO_BASEPOINT, RistrettoPoint)
+    from bulletproof_gadgets_tpu_torch.ops import fp
+    r = random.Random(33)
+    pts = [RistrettoPoint.identity()]
+    for _ in range(29):
+        q = RISTRETTO_BASEPOINT.scalar_mul(r.randrange(L))
+        z = r.randrange(1, P)
+        pts.append(RistrettoPoint(q.X * z, q.Y * z, q.Z * z, q.T * z))
+    cols = torch.stack([torch.from_numpy(fp.ints_to_limbs(
+        [getattr(p, c) for p in pts])) for c in "XYZT"]).to(cuda)
+    res = ms.horner(stage_inputs["ws"], stage_inputs["k"])
+    return torch.cat([res, cols], 2).contiguous()
+
+
+def test_ristretto_compress_equals_plain(cuda, stage_inputs):
+    """ristretto_compress on the k=3 MSM's points, the identity and random
+    points against its plain version (tolerance 0) and the host."""
+    from bulletproof_gadgets_tpu_torch.ops import ristretto_device as rd
+    cols = _compress_inputs(cuda, stage_inputs)
+    before = ms.LAUNCHES["ristretto_compress"]
+    got = rd.ristretto_compress(cols)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["ristretto_compress"] == before + 1
+    assert got.is_cuda and torch.equal(got, rd.compress_cols(cols))
+    want = [p.compress() for p in ms.points_from_cols(cols)]
+    assert [bytes(row) for row in got.cpu().numpy()] == want
+
+
+def test_transcript_round_equals_plain(cuda):
+    """transcript_round for three transcripts at three byte positions,
+    four chained rounds of seeded encodings, against its plain version
+    (states, positions, rows: tolerance 0); challenge_rows on 64 chosen
+    byte strings (below and above l, near 2^512) against its plain
+    version."""
+    from bulletproof_gadgets_tpu_torch.ops import strobe_device as sd
+    from bulletproof_gadgets_tpu_torch.utils.merlin import Transcript
+    rng = np.random.default_rng(3)
+    ts = []
+    for c in (0, 3, 5):
+        t = Transcript(b"R1CSProof")
+        for _ in range(c):
+            t.append_message(b"V", rng.bytes(32))
+        ts.append(t)
+    state, meta = sd.snapshot(ts, cuda)
+    p_state, p_meta = state.cpu(), meta.cpu()
+    for _ in range(4):
+        enc = torch.from_numpy(rng.integers(0, 256, (3, 2, 32),
+                                            dtype=np.uint8))
+        before = ms.LAUNCHES["transcript_round"]
+        state, meta, u = sd.transcript_round(state, meta, enc.to(cuda))
+        torch.cuda.synchronize()
+        assert ms.LAUNCHES["transcript_round"] == before + 1
+        p_state, p_meta, p_u = sd.transcript_round_plain(p_state, p_meta,
+                                                         enc)
+        assert torch.equal(state.cpu(), p_state)
+        assert torch.equal(meta.cpu(), p_meta)
+        assert torch.equal(u.cpu(), p_u)
+    vals = [0, 1, L - 1, L, L + 1, (1 << 256) - 1, 1 << 256, L << 256,
+            (1 << 512) - 1, (1 << 512) - L]
+    chs = [v.to_bytes(64, "little") for v in vals] + [
+        rng.bytes(64) for _ in range(54)]
+    ch = torch.tensor([list(c) for c in chs], dtype=torch.uint8)
+    before = dict(ms.LAUNCHES)
+    got = sd.challenge_rows(ch.to(cuda))
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["challenge_rows"] == before["challenge_rows"] + 1
+    assert ms.LAUNCHES["transcript_round"] == before["transcript_round"]
+    assert torch.equal(got.cpu(), sd.challenge_rows_plain(ch))
+
+
+def test_device_ipa_equals_cpu(cuda):
+    """ipa_fused.create on a 64-gens table with one fold, on the card and
+    on the CPU: equal L/R bytes, a0, b0 and transcript state."""
+    from bulletproof_gadgets_tpu_torch.core.transcript import (
+        innerproduct_domain_sep)
+    from bulletproof_gadgets_tpu_torch.ops import ipa_fused
+    from bulletproof_gadgets_tpu_torch.utils.merlin import Transcript
+    n, r = 64, random.Random(64)
+    pc = PedersenGens.default()
+    gens = BulletproofGens(n)
+    a = [r.randrange(L) for _ in range(n)]
+    b = [r.randrange(L) for _ in range(n)]
+    outs, ts = [], []
+    for dev in (cuda, torch.device("cpu")):
+        table = ms.GeneratorTable(list(gens.G(n)), list(gens.H(n)), pc.B,
+                                  pc.B_blinding, dev)
+        t = Transcript(b"ipa-on-card")
+        innerproduct_domain_sep(t, n)
+        outs.append(ipa_fused.create(t, table, 7, [1] * n, [3] * n, a, b,
+                                     fold_at=2, fold_min=4))
+        ts.append(t)
+    assert outs[0] == outs[1]
+    assert ts[0].challenge_bytes(b"x", 32) == ts[1].challenge_bytes(b"x", 32)

@@ -57,21 +57,21 @@ def test_msm_matches_host(points, n, k):
 def test_chunked_msm_matches_host(points, k, monkeypatch):
     """A 258-point table in point chunks of 64 (five chunks, the last of
     two points): the chunks' window sums added lane-wise by K7's plain
-    version (four adds) equal the host MSM."""
+    version (one call over the five) equal the host MSM."""
     n = 258
     pts = points[:n]
     src = torch.from_numpy(ms.prep_source(pts))
     vecs = _vectors(k, n, seed=7 + k)
     adds = []
-    real = ms.point_add
-    monkeypatch.setattr(ms, "point_add",
-                        lambda p, q: adds.append(p.shape) or real(p, q))
+    real = ms.point_sum
+    monkeypatch.setattr(ms, "point_sum",
+                        lambda ws: adds.append(ws.shape) or real(ws))
     digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
                              for vec in vecs], 1)
     cols = ms.msm_digits_t(
         torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8)),
         src, n, point_chunk=64)
-    assert adds == [(4, ms.NL, k * ms.W)] * 4
+    assert adds == [(5, 4, ms.NL, k * ms.W)]
     want = [msm_host(v, _as_jax(pts)) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]
@@ -296,3 +296,55 @@ def test_kernel_failures_raise(points, monkeypatch, tmp_path):
         native.build()
     with pytest.raises(ValueError):                # a wrong pool shape
         ms.bucket_accumulate_cont(src, idx, acc[:, :, :4].contiguous())
+
+
+@pytest.mark.parametrize("d", [1, 2, 17])
+def test_point_sum_plain_matches_chained_adds(points, d):
+    """K7's plain version over d chunks of 40 lanes of table points (chunk
+    i holds points i, i + 1, ...; carried limbs from curve.padd) equals
+    the lane-wise host sums, as canonical limbs."""
+    n = 40
+    chunks = []
+    for i in range(d):
+        pts = points[i:i + n]
+        cols = curve.stack(tuple(torch.from_numpy(fp.ints_to_limbs(
+            [getattr(p, c) for p in pts]).astype(np.int64))
+            for c in "XYZT"))
+        # through padd with the identity: carried, not canonical limbs
+        ident = curve.identity((n,), "cpu")
+        chunks.append(curve.stack(curve.padd(curve.unstack(cols), ident)))
+    got = ms.point_sum(torch.stack(chunks))
+    assert got.shape == (4, ms.NL, n)
+    widths = fp.const([1 << w for w in fp.W], got[0])
+    assert bool(((got >= 0) & (got < widths)).all())
+    want = []
+    for j in range(n):
+        s = points[j]
+        for i in range(1, d):
+            s = s + points[i + j]
+        want.append(s)
+    assert [g.compress() for g in ms.points_from_cols(got)] == \
+        [w.compress() for w in want]
+    acc = curve.unstack(chunks[0])
+    for c in chunks[1:]:
+        acc = curve.padd(acc, curve.unstack(c))
+    assert torch.equal(got, curve.stack(tuple(fp.canonical(c) for c in acc)))
+
+
+def test_msm_digits_enc_matches_host(points):
+    """The encoded MSM (msm_digits_enc; GeneratorTable's launch / finish)
+    of three vectors over 130 points: the host MSM's compressed points."""
+    n = 130
+    pts = points[:n]
+    vecs = _vectors(3, n, seed=131)
+    digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
+                             for vec in vecs], 1)
+    d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
+    src = torch.from_numpy(ms.prep_source(pts))
+    enc = ms.msm_digits_enc(d, src, n)
+    assert enc.dtype == torch.uint8 and enc.shape == (3, 32)
+    want = [msm_host(v, _as_jax(pts)).compress() for v in vecs]
+    assert [bytes(r.tolist()) for r in enc] == want
+    table = ms.GeneratorTable.from_rows(ms.prep_source(pts), "cpu")
+    assert table.msm_digits_enc_finish(table.msm_digits_enc_launch(d)) == \
+        want

@@ -102,11 +102,11 @@ def test_less_than_matches_its_pin(port_on_cpu, ipa_calls, monkeypatch):
     monkeypatch.setattr(flatten, "MIN_DEVICE_TERMS", 0)
     monkeypatch.setattr(msm_serial, "POINT_CHUNK", 1024)
     flats, adds = [], []
-    real_flatten, real_add = flatten.flatten, msm_serial.point_add
+    real_flatten, real_add = flatten.flatten, msm_serial.point_sum
     monkeypatch.setattr(flatten, "flatten", lambda *a, **kw: flats.append(
         real_flatten(*a, **kw)) or flats[-1])
-    monkeypatch.setattr(msm_serial, "point_add",
-                        lambda p, q: adds.append(p.shape[2]) or real_add(p, q))
+    monkeypatch.setattr(msm_serial, "point_sum",
+                        lambda ws: adds.append(ws.shape[3]) or real_add(ws))
     proof, coms = _prove(prove, rng, "less_than")
     assert ipa_calls == [st["gens"]]
     assert len(flats) == 1 and flats[0] is not None
