@@ -7,7 +7,8 @@ is [B, 200] with their byte positions (pos, pos_begin, cur_flags) in an
 int32 [B, 3] tensor beside it, on the same device, so a group may mix
 statements whose transcripts stand at different positions (proofs of
 different commitment counts).  `snapshot` copies host transcripts
-(utils/merlin.Transcript) to the device; `write_back` sets a host
+(capi.NativeTranscript on the path; utils/merlin.Transcript, its plain
+version, in tests) to the device; `write_back` sets a host
 transcript's state and positions from a device row that was read back,
 where the JAX package's `replay_host` re-ran Keccak on the host.
 
@@ -124,11 +125,12 @@ class DeviceStrobe:
 
 
 def snapshot_host(transcript):
-    """Host utils/merlin.Transcript -> (state np.uint8 [200], pos,
-    pos_begin, cur_flags)."""
-    s = transcript.strobe
-    return (np.frombuffer(bytes(s.state), dtype=np.uint8).copy(), s.pos,
-            s.pos_begin, s.cur_flags)
+    """Host transcript (capi.NativeTranscript, the path's, or
+    utils/merlin.Transcript) -> (state np.uint8 [200], pos, pos_begin,
+    cur_flags)."""
+    state, pos, pos_begin, cur_flags = transcript.strobe_state()
+    return (np.frombuffer(state, dtype=np.uint8).copy(), pos, pos_begin,
+            cur_flags)
 
 
 def snapshot(transcripts, device):
@@ -143,9 +145,8 @@ def write_back(transcript, state, meta):
     """Set a host transcript's STROBE state and positions from a device
     row read back: state 200 byte values, meta (pos, pos_begin,
     cur_flags)."""
-    s = transcript.strobe
-    s.state = bytearray(bytes(np.asarray(state, dtype=np.uint8)))
-    s.pos, s.pos_begin, s.cur_flags = (int(v) for v in meta)
+    transcript.set_strobe_state(bytes(np.asarray(state, dtype=np.uint8)),
+                                *(int(v) for v in meta))
 
 
 def _check_round(states, meta, enc):

@@ -7,6 +7,7 @@ it must match the Rust implementation exactly; tests/test_merlin.py pins the
 published merlin "equivalence" test vector.
 """
 
+from ..capi import NativeTranscript
 from .keccak import f1600_bytes
 
 STROBE_R = 166
@@ -129,7 +130,25 @@ class Transcript:
         self.strobe.meta_ad(_encode_u32(n), True)
         return self.strobe.prf(n, False)
 
+    def strobe_state(self):
+        """(200 state bytes, pos, pos_begin, cur_flags)."""
+        s = self.strobe
+        return bytes(s.state), s.pos, s.pos_begin, s.cur_flags
+
+    def set_strobe_state(self, state: bytes, pos: int, pos_begin: int,
+                         cur_flags: int) -> None:
+        """Overwrite the STROBE state and positions (a state carried on
+        elsewhere, e.g. by the device transcript, written back)."""
+        if len(state) != 200:
+            raise ValueError(f"state of {len(state)} bytes, expected 200")
+        s = self.strobe
+        s.state = bytearray(state)
+        s.pos, s.pos_begin, s.cur_flags = pos, pos_begin, cur_flags
+
 
 def new_transcript(label: bytes):
-    """Factory: the pure-Python transcript."""
-    return Transcript(label)
+    """The transcript of lang.prove / lang.verify: the C one
+    (capi/merlin_native.c, built at first use; a failed build raises).
+    `Transcript` above is its plain version, which the tests hold it
+    against."""
+    return NativeTranscript(label)

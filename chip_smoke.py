@@ -82,14 +82,29 @@ Phases (one line each; any failure raises and exits non-zero):
      64 chosen challenge strings), with times and bounds; both are one
      thread's chain, so each also gets a latency bound: its chain of
      dependent field products times one product's latency, measured by a
-     probe on one thread.
+     probe on one thread;
+ 11. the embedding surfaces on the card: (a) the HTTP proof service
+     (cli/serve.Handler on a ThreadingHTTPServer in this process): /prove
+     and /verify of example, merkle32 and the flat and nested OR pins,
+     first and warm, byte-equal to the pins, verify true, tampered false,
+     per-request wall times beside phase 4's direct ones, the launch
+     counters reset just before the requests and read just after (K1,
+     K3-K7, the compression and the transcript round must launch); (b) the
+     C ABI (capi/bpg_ffi.c) loaded into this process: c_prove / c_verify of
+     example; (c) the same ABI embedded in a C program (capi/bpg_embed.c)
+     run as a fresh process on CUDA; (d) the JNI layer (capi/bpg_jni.c)
+     through a JNIEnv made in Python (capi/jni_host); each the pinned
+     bytes, 1 and 0 for a tampered proof; (e) warm merkle32 proved and
+     verified with the C transcript and with the Python one in alternating
+     pairs (bytes equal to the pin), host seconds per prove and verify,
+     and one IPA round's absorbs and challenge on each.
 Then the card's name and power limit, one JSON line of per-kernel results
 (with each kernel's bound: the larger of its products, PRODUCTS_PER_MUL
 a field mul (the two one-thread kernels: their word products, a squaring
 at its distinct pairs), over the card's int32 multiply rate and its bytes
-over the memory rate; launches
-are the single-proof path's, the batch path's and the two layout runs'
-together), and the last line {"ok": true, "device": {...}}.
+over the memory rate; launches are the single-proof path's, the batch
+path's, the two layout runs' and phase 11's requests together), and the
+last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -988,6 +1003,251 @@ def layout_path(pins, ms, engine, layout, rows_batch):
     say(f"layout {layout} launches: {launches}")
     return launches
 
+SURFACE_STATEMENTS = ("example", "merkle32", "or_flat", "or_nested")
+# kernels phase 11 (a)'s requests must launch (point_sum: merkle32's chunks)
+SURFACE_KERNELS = ("bucket_accumulate", "bucket_merge", "window_sums",
+                   "horner", "ladder_fold", "point_sum", "ristretto_compress",
+                   "transcript_round")
+TRANSCRIPT_PAIRS = 8            # phase 11 (e): C / Python transcript pairs
+TRANSCRIPT_ROUNDS = 200         # IPA rounds' absorbs timed on each
+
+
+def surfaces(pins, ms, engine, direct):
+    """Phase 11: the embedding surfaces on the card.  (a) the HTTP service
+    (cli/serve.Handler in this process): prove and verify the pinned
+    example, merkle32 and OR statements, first and warm, the launch
+    counters reset just before and read just after; (b) the C ABI loaded
+    into this process; (c) the C ABI embedded in a C program, a fresh
+    process; (d) the JNI layer through jni_host.FakeJNI; (e) warm merkle32
+    with the C transcript and with the Python one in alternating pairs.
+    Returns (a)'s launches."""
+    import ctypes
+    import statistics
+    import sysconfig
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from bulletproof_gadgets_tpu_torch import capi
+    from bulletproof_gadgets_tpu_torch.capi import jni_host
+    from bulletproof_gadgets_tpu_torch.cli import serve
+    from bulletproof_gadgets_tpu_torch.lang import prove as lp
+    from bulletproof_gadgets_tpu_torch.lang import verify as lv
+    from bulletproof_gadgets_tpu_torch.utils import merlin
+    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    def tampered(proof):
+        bad = bytearray(proof)
+        bad[len(bad) // 2] ^= 1
+        return bytes(bad)
+
+    def check(label, name, proof, coms):
+        st = pins["statements"][name]
+        if sha(proof) != st["proof_sha256"] or sha(coms) != st["coms_sha256"]:
+            raise AssertionError(f"{label}: {name}: proof or .coms differ "
+                                 "from the JAX package's pin")
+
+    # (a) the HTTP service
+    if engine.use().type != "cuda":
+        raise AssertionError(f"phase 11 on {engine.use()}, not CUDA")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(path, payload):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}{path}",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.time()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read()), time.time() - t0
+        except urllib.error.HTTPError as e:
+            raise AssertionError(f"HTTP {path}: {e.code} {e.read()!r}")
+
+    for name in ms.LAUNCHES:
+        ms.LAUNCHES[name] = 0
+    try:
+        for name in SURFACE_STATEMENTS:
+            st = pins["statements"][name]
+            times = []
+            for _ in range(2):                   # first, then warm
+                blind_rng.set_seed(pins["seed"])
+                try:
+                    out, t_prove = post("/prove", {
+                        "name": name, "instance": st["instance"],
+                        "witness": st["witness"], "gadgets": st["gadgets"]})
+                finally:
+                    blind_rng.set_seed(None)
+                proof = bytes.fromhex(out["proof"])
+                check("HTTP", name, proof, out["commitments"].encode())
+                req = {"name": name, "instance": st["instance"],
+                       "proof": out["proof"],
+                       "commitments": out["commitments"],
+                       "gadgets": st["gadgets"]}
+                res, t_verify = post("/verify", req)
+                if res != {"verified": True}:
+                    raise AssertionError(f"HTTP: {name}: verify {res}")
+                times.append((t_prove, t_verify))
+            req["proof"] = tampered(proof).hex()
+            if post("/verify", req)[0] != {"verified": False}:
+                raise AssertionError(f"HTTP: {name}: tampered proof verified")
+            d = (f"{direct[name][0]:.3f} s / {direct[name][1]:.3f} s"
+                 if name in direct else "not run")
+            say(f"HTTP {name}: proof and .coms equal the pins, verify true, "
+                f"tampered false; per request prove first {times[0][0]:.3f} "
+                f"s warm {times[1][0]:.3f} s, verify first {times[0][1]:.3f} "
+                f"s warm {times[1][1]:.3f} s; phase 4's direct warm prove / "
+                f"verify {d}")
+        launches = dict(ms.LAUNCHES)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    idle = [k for k in SURFACE_KERNELS if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"HTTP: kernels not launched: {idle}")
+    say(f"HTTP launches: {launches}")
+
+    # (b) the C ABI loaded into this process
+    st = pins["statements"]["example"]
+    inst, wtns, gad = (st[k].encode() for k in ("instance", "witness",
+                                                "gadgets"))
+    lib = capi.load_ffi()
+    blind_rng.set_seed(pins["seed"])
+    try:
+        t0 = time.time()
+        art = lib.c_prove(b"example", inst, wtns, gad)
+        t_prove = time.time() - t0
+    finally:
+        blind_rng.set_seed(None)
+    if not art:
+        raise AssertionError("C ABI: c_prove returned NULL")
+    proof = ctypes.string_at(art.contents.proof, art.contents.len)
+    coms = art.contents.commitments
+    lib.free_proof(art)
+    check("C ABI", "example", proof, coms)
+    bad = tampered(proof)
+    verdicts = (lib.c_verify(b"example", inst, proof, len(proof), coms, gad),
+                lib.c_verify(b"example", inst, bad, len(bad), coms, gad))
+    if verdicts != (1, 0):
+        raise AssertionError(f"C ABI: c_verify {verdicts}, want (1, 0)")
+    say(f"C ABI in this process: example proof and .coms equal the pins "
+        f"(c_prove {t_prove:.3f} s), c_verify 1, tampered 0")
+
+    # (c) the C ABI embedded in a C program
+    exe = capi.embed_program()
+    path = [ROOT, sysconfig.get_paths()["purelib"]]
+    if os.environ.get("PYTHONPATH"):
+        path.append(os.environ["PYTHONPATH"])
+    env = dict(os.environ, BPG_TPU_SEED=pins["seed"], BPG_TORCH_DEVICE="cuda",
+               PYTHONPATH=os.pathsep.join(path))
+    with tempfile.TemporaryDirectory() as tmp:
+        for ext, key in ((".inst", "instance"), (".wtns", "witness"),
+                         (".gadgets", "gadgets")):
+            with open(os.path.join(tmp, f"example{ext}"), "w") as f:
+                f.write(st[key])
+        t0 = time.time()
+        out = subprocess.run([exe, tmp, "example"], capture_output=True,
+                             text=True, env=env, timeout=600)
+        t_run = time.time() - t0
+    lines = out.stdout.splitlines()
+    if out.returncode != 0 or len(lines) != 3:
+        raise AssertionError(f"C program: exit {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-6000:]}")
+    digest = sha(bytes.fromhex(lines[0]))
+    if (digest, lines[1:]) != (st["proof_sha256"],
+                               ["true", "tampered false"]):
+        raise AssertionError(f"C program: proof sha256 {digest}, {lines[1:]}")
+    say(f"C program (a fresh process, CPython, PyTorch and CUDA started by "
+        f"c_prove): example proof sha256 {digest} equals the pin, true, "
+        f"tampered false, in {t_run:.1f} s")
+
+    # (d) the JNI layer
+    ext_prove, ext_verify = jni_host.entry_points(capi.jni_library())
+    wrapper = {"name": "example", "instance": st["instance"],
+               "witness": st["witness"], "gadgets": st["gadgets"]}
+    jni = jni_host.FakeJNI(wrapper)
+    blind_rng.set_seed(pins["seed"])
+    try:
+        ext_prove(jni.env, None, 1)
+    finally:
+        blind_rng.set_seed(None)
+    if "proof" not in wrapper:
+        raise AssertionError("JNI: extProve set no proof")
+    check("JNI", "example", bytes(wrapper["proof"]),
+          wrapper["commitments"].encode())
+    bad = jni_host.FakeJNI(dict(wrapper, proof=bytearray(
+        tampered(bytes(wrapper["proof"])))))
+    verdicts = (ext_verify(jni.env, None, 1), ext_verify(bad.env, None, 1))
+    if verdicts != (1, 0):
+        raise AssertionError(f"JNI: extVerify {verdicts}, want (1, 0)")
+    say("JNI: example proof and .coms equal the pins, extVerify 1, "
+        "tampered 0")
+
+    # (e) the host transcript: C against Python on warm merkle32
+    st = pins["statements"]["merkle32"]
+
+    def run(transcript):
+        lp.Transcript = lv.Transcript = transcript
+        try:
+            blind_rng.set_seed(pins["seed"])
+            coms = []
+            try:
+                t0 = time.time()
+                proof, _ = lp.prove("merkle32", st["instance"],
+                                    st["witness"], st["gadgets"], coms)
+                t_p = time.time() - t0
+            finally:
+                blind_rng.set_seed(None)
+            t0 = time.time()
+            ok = lv.verify("merkle32", st["instance"], proof, "".join(coms),
+                           st["gadgets"])
+            t_v = time.time() - t0
+        finally:
+            lp.Transcript = lv.Transcript = merlin.new_transcript
+        check(f"transcript {transcript.__name__}", "merkle32", proof,
+              "".join(coms).encode())
+        if not ok:
+            raise AssertionError(f"{transcript.__name__}: merkle32 verify "
+                                 "false")
+        return t_p, t_v
+
+    sides = {"C": capi.NativeTranscript, "Python": merlin.Transcript}
+    runs = {side: [] for side in sides}
+    run(sides["C"])                              # warm
+    for i in range(TRANSCRIPT_PAIRS):
+        for side in (("C", "Python") if i % 2 == 0 else ("Python", "C")):
+            runs[side].append(run(sides[side]))
+    for side, make in sides.items():
+        t = make(b"ipa")
+        t0 = time.perf_counter()
+        for _ in range(TRANSCRIPT_ROUNDS):
+            t.append_message(b"L", bytes(32))
+            t.append_message(b"R", bytes(32))
+            t.challenge_bytes(b"u", 64)
+        per_round = (time.perf_counter() - t0) / TRANSCRIPT_ROUNDS
+        p, v = ([r[j] for r in runs[side]] for j in (0, 1))
+        say(f"host transcript {side}: warm merkle32 prove median "
+            f"{statistics.median(p):.4f} s [{min(p):.4f}, {max(p):.4f}], "
+            f"verify median {statistics.median(v):.4f} s [{min(v):.4f}, "
+            f"{max(v):.4f}] over {TRANSCRIPT_PAIRS} alternating pairs, "
+            f"bytes equal the pin; one IPA round's absorbs and challenge "
+            f"{per_round * 1e6:.1f} us")
+    for j, what in ((0, "prove"), (1, "verify")):
+        diffs = [c[j] - p[j] for c, p in zip(runs["C"], runs["Python"])]
+        say(f"host transcript C less Python, warm merkle32 {what}: median "
+            f"{statistics.median(diffs) * 1e3:.1f} ms [{min(diffs) * 1e3:.1f}"
+            f", {max(diffs) * 1e3:.1f}] over the pairs, C faster in "
+            f"{sum(d < 0 for d in diffs)} of {len(diffs)}")
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1115,6 +1375,7 @@ def main() -> int:
     m_folds = []                                 # merkle32's K6 inputs
     compress, t_round = rd.ristretto_compress, sd.transcript_round
     rec = {}                  # merkle32's warm inputs of the new kernels
+    direct = {}               # warm (prove s, verify s) per statement
 
     def count_ipa(transcript, table, w, G_factors, *a, **kw):
         ipa_runs.append([len(G_factors), 0])
@@ -1201,6 +1462,7 @@ def main() -> int:
                     raise AssertionError(f"{name}: host loops ran on the "
                                          f"device path: {host_calls}")
                 times.append((t_prove, t_verify))
+            direct[name] = times[1]
             bad = bytearray(proof)
             bad[len(bad) // 2] ^= 1
             if verify(name, st["instance"], bytes(bad), coms, st["gadgets"]):
@@ -1282,13 +1544,17 @@ def main() -> int:
     # 10. the device transcript's kernels against their plain versions
     results.update(check_transcript_kernels(rd, sd, rec, device))
 
+    # 11. the embedding surfaces: HTTP, C ABI, JNI; the host transcript
+    surface_launches = surfaces(pins, ms, engine, direct)
+
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src_file,
          "replaces": replaces,
          "launches": launches[name] + batch_launches[name]
-         + sum(run[name] for run in layout_launches),
+         + sum(run[name] for run in layout_launches)
+         + surface_launches[name],
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}

@@ -1,13 +1,13 @@
 """Freeze the proof pins that the PyTorch port is held against.
 
-Proves four inline statements with the JAX package on the CPU, every MSM on
+Proves six inline statements with the JAX package on the CPU, every MSM on
 the host (`core.msm.set_table_min_size(1 << 30)` keeps the generator tables
 off the device), under one fixed blinding seed, verifies each proof, and
 writes `tests/port_pins.json`: the statement texts (gadgets, instance and
 witness, with Merkle roots and hash images computed by `models/mimc`), the
 circuit sizes and the sha256 of the proof and of the `.coms` text.
 
-    python scripts/freeze_port_pins.py                 # all four (an hour)
+    python scripts/freeze_port_pins.py                 # all six (an hour)
     python scripts/freeze_port_pins.py --only bound16  # a subset
     python scripts/freeze_port_pins.py --batch         # the batch pins
 
@@ -25,7 +25,12 @@ every proof's commitment blindings before any proof's t-poly blindings.
 The nine-line `example` pads to 2^14 generators and its host MSMs over the
 32,770-point table take minutes; `merkle32` (a depth-5 MiMC Merkle
 membership) pads to 2^16 generators, a 131,074-point table, and takes tens
-of minutes.
+of minutes.  The two OR statements (`or_flat`: three clauses, BOUND, EQUALS
+and UNEQUAL, the EQUALS one false; `or_nested`: a BOUND and a nested
+OR of EQUALS and UNEQUAL against a false EQUALS) take seconds; `or_flat`
+is proved a second time with its generator table forced onto the device
+path (`set_table_min_size(8)`, the Pallas kernels in interpret mode,
+minutes), and the two proofs must be byte-equal.
 """
 import argparse
 import hashlib
@@ -43,7 +48,7 @@ jax.config.update("jax_platforms", "cpu")
 from bulletproof_gadgets_tpu.core import msm as core_msm  # noqa: E402
 from bulletproof_gadgets_tpu.core.scalar import Scalar  # noqa: E402
 from bulletproof_gadgets_tpu.lang.prove import (  # noqa: E402
-    prove_prepared, round_pow2)
+    prove, prove_prepared, round_pow2)
 from bulletproof_gadgets_tpu.lang.verify import verify  # noqa: E402
 from bulletproof_gadgets_tpu.models.mimc import (  # noqa: E402
     mimc_hash, mimc_sponge)
@@ -111,6 +116,14 @@ def _merkle32():
             _lines([("W0", values["W0"])]))
 
 
+# the OR statements' assignments: W0 in [I0, I1], W1 != I2 (a false EQUALS
+# clause), W2 != I3, W0 != I4
+OR_INSTANCE = _lines((k, bytes.fromhex(v)) for k, v in (
+    ("I0", "0010"), ("I1", "1000"), ("I2", "07"), ("I3", "0539"),
+    ("I4", "2a")))
+OR_WITNESS = _lines((k, bytes.fromhex(v)) for k, v in (
+    ("W0", "0539"), ("W1", "08"), ("W2", "09")))
+
 STATEMENTS = {
     # 16-bit BOUND: 32 multipliers, a 66-point table
     "bound16": lambda: ("BOUND W0 I0 I1\n",
@@ -125,7 +138,15 @@ STATEMENTS = {
     # 61,236 multipliers, 2^16 gens, a 131,074-point table (two point
     # chunks on the port's device path)
     "merkle32": _merkle32,
+    "or_flat": lambda: ("OR [\n{\nBOUND W0 I0 I1\n}\n{\nEQUALS W1 I2\n}\n"
+                        "{\nUNEQUAL W2 I3\n}\n]\n", OR_INSTANCE, OR_WITNESS),
+    "or_nested": lambda: ("OR [\n{\nBOUND W0 I0 I1\nOR [\n{\nEQUALS W1 I2\n}"
+                          "\n{\nUNEQUAL W2 I3\n}\n]\n}\n{\nEQUALS W0 I4\n}"
+                          "\n]\n", OR_INSTANCE, OR_WITNESS),
 }
+# statements also proved on a device table forced small (their bytes must
+# not depend on the table's path)
+DEVICE_TABLE_TOO = {"or_flat"}
 
 
 def freeze(name: str) -> dict:
@@ -144,6 +165,18 @@ def freeze(name: str) -> dict:
     assert ok, f"{name}: the JAX package rejects its own proof"
     print(f"{name}: {n_mult} multipliers, {num_constraints} constraints, "
           f"prove {t_prove:.1f} s", flush=True)
+    if name in DEVICE_TABLE_TOO:
+        core_msm.set_table_min_size(8)
+        rng.set_seed(SEED)
+        dev_coms: list = []
+        try:
+            dev_proof, _ = prove(name, instance, witness, gadgets, dev_coms)
+        finally:
+            rng.set_seed(None)
+            core_msm.set_table_min_size(1 << 30)
+        assert (dev_proof, "".join(dev_coms)) == (proof, coms_text), \
+            f"{name}: the device table's proof differs from the host's"
+        print(f"{name}: byte-equal on a device table", flush=True)
     return {"gadgets": gadgets, "instance": instance, "witness": witness,
             "multipliers": n_mult, "constraints": num_constraints,
             "gens": round_pow2(n_mult),

@@ -13,6 +13,7 @@ import hashlib
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -184,4 +185,12 @@ def test_port_never_imports_jax():
             words = line.split()
             assert not (words[:1] in (["import"], ["from"]) and len(words) > 1
                         and words[1].split(".")[0] in ("jax", "jaxlib")), \
+                (path, line)
+    # C reaches Python modules by name (PyImport_ImportModule): no string in
+    # the port's C sources may name the JAX package
+    c_files = sorted(PORT.rglob("*.[ch]"))
+    assert c_files
+    for path in c_files:
+        for line in path.read_text().splitlines():
+            assert not re.search(r"bulletproof_gadgets_tpu(?!_torch)", line), \
                 (path, line)
