@@ -12,8 +12,12 @@ Derivation rules (bulletproofs::generators):
 The reference always uses party_capacity = 1.
 
 Generator *expansion* (uniform bytes -> points) is pure precompute; it is
-cached on disk (and batched on device later) since large circuits need 2^20+
-generators.
+cached on disk, and runs on the device the caller names
+(ops/ristretto_device.points_from_uniform_bytes: the host's formulas in
+batched field ops, so the points equal RistrettoPoint.from_uniform_bytes's
+to the coordinate), since large circuits need 2^20+ generators and one
+host map takes 0.29 ms on an H100 machine's host CPU (2^21 points: ~10
+minutes in one process, ~80 s in eight; PERF.md).
 """
 import hashlib
 import os
@@ -103,13 +107,15 @@ class _GeneratorsChain:
         self._shake = hashlib.shake_256(b"GeneratorsChain" + label)
         self._offset = 0
 
-    def take(self, n: int):
+    def take(self, n: int, device):
+        """The next n points, mapped on `device` in batches
+        (ops/ristretto_device.points_from_uniform_bytes)."""
+        from ..ops.ristretto_device import points_from_uniform_bytes
         # hashlib's XOF cannot stream, so squeeze the full prefix each time;
         # callers monotonically extend, so this is called once per size bump.
         total = self._offset + n
         stream = self._shake.digest(64 * total)
-        out = [RistrettoPoint.from_uniform_bytes(stream[64 * i:64 * (i + 1)])
-               for i in range(self._offset, total)]
+        out = points_from_uniform_bytes(stream[64 * self._offset:], device)
         self._offset = total
         return out
 
@@ -120,10 +126,13 @@ class BulletproofGens:
     _lock = threading.Lock()
     _cached = None  # (capacity, G, H) — grows monotonically, process-wide
 
-    def __init__(self, gens_capacity: int, party_capacity: int = 1):
+    def __init__(self, gens_capacity: int, party_capacity: int = 1, *,
+                 device):
+        """A chain that is not cached yet is mapped on `device` ("cuda",
+        "cpu", ...)."""
         assert party_capacity == 1, "reference uses party capacity 1 only"
         self.gens_capacity = gens_capacity
-        self._ensure(gens_capacity)
+        self._ensure(gens_capacity, device)
 
     @classmethod
     def _disk_load(cls, capacity: int):
@@ -154,7 +163,7 @@ class BulletproofGens:
             pass
 
     @classmethod
-    def _ensure(cls, capacity: int):
+    def _ensure(cls, capacity: int, device):
         with cls._lock:
             if cls._cached is not None and cls._cached[0] >= capacity:
                 return
@@ -164,8 +173,8 @@ class BulletproofGens:
                 return
             g_chain = _GeneratorsChain(b"G" + (0).to_bytes(4, "little"))
             h_chain = _GeneratorsChain(b"H" + (0).to_bytes(4, "little"))
-            G = g_chain.take(capacity)
-            H = h_chain.take(capacity)
+            G = g_chain.take(capacity, device)
+            H = h_chain.take(capacity, device)
             cls._cached = (capacity, G, H)
             if capacity >= 256:
                 cls._disk_store(capacity, G, H)

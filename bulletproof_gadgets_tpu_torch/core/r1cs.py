@@ -16,7 +16,8 @@ work runs on the device: the A_I/A_O/S digits, the flattening
 vectors (ops/prover_device), the inner-product argument (ops/ipa_fused)
 and the verifier's table scalars (ops/verifier_device); the commitments'
 MSM is `table.msm_digits_enc_launch` (their points compressed on the
-device), the verifier's `table.msm_digits`.  On a host table
+device), the verifier's `table.msm_digits`; each reads its schedule's pool
+check (ops/msm_serial.msm_digits_t's excess) in the readback it makes.  On a host table
 (core/msm._HostTable) the host loops below run: they are the oracle.
 `Prover.prove_gen` is the proof as a generator of device requests (the
 commitments' MSM, the t-poly readback, the argument); `Prover.prove`

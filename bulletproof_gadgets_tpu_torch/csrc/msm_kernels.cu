@@ -31,16 +31,22 @@ constexpr int kAccumulateBlocksPerSM = 5;
 inline int blocks_for(int64_t n) { return (int)((n + kThreads - 1) / kThreads); }
 
 // K1 (kCarry false): lane p accumulates the rows idx[0..T-1, p] by mixed
-// addition, from the identity.  K2 (kCarry true): the same T adds, started
-// from lane p of acc_in (the pool of the earlier round chunks, canonical).
-// The adds run on field32.cuh's radix-2^32 core: the row's canonical limbs
-// are converted once per round, the accumulator once per lane on the way
-// in (K2) and out; the pool is written as canonical limbs.
+// addition, from the identity, up to its first entry of row `ident` (the
+// schedule's identity row, the source's last: ops/msm_serial.schedule gives
+// each lane its entries as a prefix of its rounds and that row after them,
+// so a lane past the buckets' own stops at round 0 and a pool bound from
+// the shape costs launch width, not adds; a real identity point elsewhere
+// in the source is added as any other).  K2 (kCarry true): the same adds,
+// started from lane p of acc_in (the pool of the earlier round chunks,
+// canonical; a lane already past its entries writes it back as it came).  The adds run on field32.cuh's radix-2^32 core: the
+// row's canonical limbs are converted once per round, the accumulator once
+// per lane on the way in (K2) and out; the pool is written as canonical
+// limbs.
 template <bool kCarry>
 __global__ void __launch_bounds__(kThreads, kAccumulateBlocksPerSM)
 bucket_accumulate_kernel(const int32_t* __restrict__ src,
                          const int32_t* __restrict__ idx, int T, int P,
-                         const int32_t* __restrict__ acc_in,
+                         int64_t ident, const int32_t* __restrict__ acc_in,
                          int32_t* __restrict__ out) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= P) return;
@@ -48,6 +54,7 @@ bucket_accumulate_kernel(const int32_t* __restrict__ src,
       kCarry ? ge8_from_limbs(ge_load(acc_in, P, lane)) : ge8_identity();
   for (int t = 0; t < T; t++) {
     const int64_t row = idx[(int64_t)t * P + lane];
+    if (row == ident) break;                    // the lane's last entry
     const int4* r = reinterpret_cast<const int4*>(src + row * 32);
     int32_t w[32];
 #pragma unroll
@@ -72,7 +79,8 @@ bucket_accumulate_kernel(const int32_t* __restrict__ src,
 }
 
 // K8 (cols, kCarry false), K9 (cols, kCarry true) and K10 (flat): K1's
-// mixed adds on coordinates gathered beforehand (ops/msm_serial.gather_cols,
+// mixed adds, with K1's stop at the lane's first entry of the identity
+// row, on coordinates gathered beforehand (ops/msm_serial.gather_cols,
 // gather_flat).  Lane p reads limb l of round t at
 // g[t * round_stride + l * limb_stride + p]: consecutive lanes read
 // consecutive addresses, so each of a round's 30 loads is coalesced across
@@ -99,6 +107,9 @@ bucket_accumulate_limbs_kernel(const int32_t* __restrict__ g,
   const int32_t* col = g + lane;
   for (int64_t t = 0; t < T; t++, col += round_stride) {
     const int32_t* q = col;
+    // the gathers mark a slot of the identity row with x limb 0 = -1
+    // (canonical limbs are never negative): the lane's last entry
+    if (__ldg(q) < 0) break;
     fe x, y, t2d;
 #pragma unroll
     for (int i = 0; i < 10; i++, q += limb_stride) x.v[i] = __ldg(q);
@@ -349,21 +360,21 @@ point_sum_kernel(const int32_t* __restrict__ ws, int D, int n,
 extern "C" {
 
 int bpg_bucket_accumulate(const void* src, const void* idx, int T, int P,
-                          void* out, void* stream) {
+                          int64_t ident, void* out, void* stream) {
   bucket_accumulate_kernel<false><<<blocks_for(P), kThreads, 0,
                                     (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)idx, T, P, nullptr,
+      (const int32_t*)src, (const int32_t*)idx, T, P, ident, nullptr,
       (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
 int bpg_bucket_accumulate_cont(const void* src, const void* idx, int T,
-                               int P, const void* acc, void* out,
-                               void* stream) {
+                               int P, int64_t ident, const void* acc,
+                               void* out, void* stream) {
   bucket_accumulate_kernel<true><<<blocks_for(P), kThreads, 0,
                                    (cudaStream_t)stream>>>(
-      (const int32_t*)src, (const int32_t*)idx, T, P, (const int32_t*)acc,
-      (int32_t*)out);
+      (const int32_t*)src, (const int32_t*)idx, T, P, ident,
+      (const int32_t*)acc, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -79,7 +79,7 @@ def _drive_lockstep(gens, max_k=None):
     """Run prover generators in lockstep, answering each step's requests
     together: same-table "msm_enc" requests as one encoded MSM per <= max_k
     (default max_stack_k()) stacked vectors, all launched before the first
-    readback, "fetch" requests as one transfer per shape, "fused_ipa"
+    readback (each reads its encodings and its pool check in one), "fetch" requests as one transfer per shape, "fused_ipa"
     requests as one create_batched per table.  A generator that yields
     nothing (a host table) finishes at its first step."""
     live = dict(enumerate(gens))
@@ -144,7 +144,7 @@ def prove_batch(name, instance, witnesses, gadgets, device=None,
     for w in witnesses:
         coms = []
         prover, bp_gens, nc = prove_prepared(name, instance, w, gadgets,
-                                             coms)
+                                             coms, dev)
         prepared.append((prover, bp_gens, nc, coms))
 
     proofs = _drive_lockstep(

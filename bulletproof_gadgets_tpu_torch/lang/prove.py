@@ -56,7 +56,7 @@ def commit_single(prover, witness: bytes):
 
 
 def prove_prepared(name: str, instance: str, witness: str, gadgets: str,
-                   coms_out: list):
+                   coms_out: list, device=None):
     """Everything in prove() up to (not including) the final prover.prove:
     parsing, witness commitments, gadget assembly, buffer replay, gens
     sizing.  Returns (prover, bp_gens, num_constraints) so callers can run
@@ -66,7 +66,8 @@ def prove_prepared(name: str, instance: str, witness: str, gadgets: str,
     The constraint structure is cached per (gadgets, instance,
     witness-shape): on a hit, gadget assembly and replay are skipped
     entirely — setup/commit side effects still run live, assignments are
-    evaluated from the cached multiplier programs (lang/template)."""
+    evaluated from the cached multiplier programs (lang/template).
+    Generators not cached yet are mapped on `device`, as in prove()."""
     transcript = Transcript(name.encode())
     pc_gens = PedersenGens.default()
     prover = Prover(pc_gens, transcript)
@@ -103,7 +104,8 @@ def prove_prepared(name: str, instance: str, witness: str, gadgets: str,
                 template.prover_cache.put(cache_key, built)
 
     num_constraints = prover.num_constraints()
-    bp_gens = BulletproofGens(round_pow2(prover.get_num_multiplications()), 1)
+    bp_gens = BulletproofGens(round_pow2(prover.get_num_multiplications()), 1,
+                              device=engine.use(device))
     return prover, bp_gens, num_constraints
 
 
@@ -115,9 +117,9 @@ def prove(name: str, instance: str, witness: str, gadgets: str,
     num_constraints).  The device work runs on `device` ("cuda", "cpu",
     ...), else on the device registered before (ops/engine), else on CUDA,
     which raises where CUDA is missing."""
-    engine.use(device)
+    device = engine.use(device)
     prover, bp_gens, num_constraints = prove_prepared(
-        name, instance, witness, gadgets, coms_out)
+        name, instance, witness, gadgets, coms_out, device)
     proof = prover.prove(bp_gens)
     return proof.to_bytes(), num_constraints
 

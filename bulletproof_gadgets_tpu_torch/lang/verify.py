@@ -36,7 +36,7 @@ def verify(name: str, instance: str, proof_bytes: bytes, commitments: str,
            gadgets: str, device=None) -> bool:
     """Mirrors verify() at src/verify.rs:36-73.  `device` as in
     lang.prove.prove."""
-    engine.use(device)
+    device = engine.use(device)
     try:
         transcript = Transcript(name.encode())
         pc_gens = PedersenGens.default()
@@ -75,7 +75,8 @@ def verify(name: str, instance: str, proof_bytes: bytes, commitments: str,
                     cache_key, template.VerifierTemplate(
                         verifier.constraints, verifier.num_vars))
 
-        bp_gens = BulletproofGens(round_pow2(verifier.get_num_vars()), 1)
+        bp_gens = BulletproofGens(round_pow2(verifier.get_num_vars()), 1,
+                                  device=device)
         verifier.verify(proof, pc_gens, bp_gens)
         return True
     except (R1CSError, ProofError):

@@ -33,8 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # products can pass 2^31 are c_int64
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _FUNCS = {
-    "bpg_bucket_accumulate": [_P, _P, _I, _I, _P, _P],
-    "bpg_bucket_accumulate_cont": [_P, _P, _I, _I, _P, _P, _P],
+    "bpg_bucket_accumulate": [_P, _P, _I, _I, _I64, _P, _P],
+    "bpg_bucket_accumulate_cont": [_P, _P, _I, _I, _I64, _P, _P, _P],
     "bpg_bucket_accumulate_cols": [_P, _I64, _I64, _P, _P],
     "bpg_bucket_accumulate_cols_cont": [_P, _I64, _I64, _P, _P, _P],
     "bpg_bucket_accumulate_flat": [_P, _I64, _I64, _P, _P],

@@ -19,8 +19,10 @@ does.
 
 The digits are the dense [64, m] matrix (L's 32 windows over R's).  The JAX
 package's compact layout (`_scalars_compact` and its source `remap`) halves
-its TPU entry sort; here `msm_serial.plan` drops zero digits before its
-sort anyway, so the dense layout is kept: the points are the same.
+its TPU entry sort; here the dense layout is kept (the points are the
+same): its zero digits sort after the live ones (msm_serial.schedule), and
+the L/R structure bounds the live entries (ipa_fused._lr_live), so the
+pool is that of the compact layout's entries.
 """
 import functools
 

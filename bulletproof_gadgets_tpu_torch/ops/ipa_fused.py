@@ -22,8 +22,10 @@ round needs no host step and the argument pays one remote readback.  In
 eager PyTorch a 255-bit inversion chain would be ~265 sequential field
 muls of ~10 launches each, and f1600 24 rounds of ~50 ops, so here each is
 a hand-written kernel of one launch per round (csrc/ristretto.cu, csrc/
-transcript.cu).  The one readback a round still makes is the MSM
-schedule's bucket counts (msm_serial.schedule).
+transcript.cu).  The MSM's schedule is built on the device from the shape
+(msm_serial.schedule), its pool bound from the L/R structure (`_lr_live`),
+so a round reads nothing back: each round's pool excess stays on the
+device and is read, and checked, in the one readback of `_finish`.
 
 Rounds over a table of more than msm_serial.POINT_CHUNK points run point
 chunked inside msm_serial.msm_digits_t (its K7 combine), so there is no
@@ -37,10 +39,12 @@ transcripts, no table fold.  Each transcript keeps its own byte positions,
 so unlike the JAX package (whose static positions need one byte layout per
 group) it takes proofs of any commitment count together.
 """
+import functools
+
+import numpy as np
 import torch
 
-from . import (fl, flvec, ipa_fold, msm_serial, ristretto_device,
-               strobe_device)
+from . import fl, flvec, ipa_fold, msm_serial, strobe_device
 from .ipa_device import _fold, _scalars, round_masks
 from ..core.scalar import L
 
@@ -57,26 +61,50 @@ def _inputs(dev, a, b, G_factors, H_factors):
     return std(a), std(b), mont(G_factors), mont(H_factors)
 
 
-def _finish(transcripts, encs, a_d, b_d, state, meta):
-    """The one readback: encodings [rounds, B, 2, 32], a0 and b0 [B, NW],
-    states and positions; writes the states back into the transcripts.
-    -> [(L_vec, R_vec, a0, b0)] per transcript."""
+@functools.lru_cache(maxsize=8)
+def _lr_live(m: int, k: int):
+    """msm_serial.msm_digits_t's live_cols for a round's digits over an
+    m-point table [G | H | B | B_blinding] (k = 2B vectors: each proof's L
+    and R): a G or H point has a non-zero scalar in at most one of a
+    proof's L and R (ipa_device._scalar_rows: the position's half picks
+    which), B in both (c_L * w, c_R * w), B_blinding in neither."""
+    live = np.full(m, k // 2, dtype=np.int64)
+    live[m - 2], live[m - 1] = k, 0
+    live.setflags(write=False)
+    return live
+
+
+def _round_msm(dig, src, m, layout):
+    """One round's L and R encodings uint8 [k, 32] and its MSM's pool
+    excess (a device scalar, read in `_finish`)."""
+    return msm_serial.msm_digits_enc(
+        dig, src, m, layout, _lr_live(m, dig.shape[0] // msm_serial.W))
+
+
+def _finish(transcripts, encs, excess, a_d, b_d, state, meta):
+    """The one readback: encodings [rounds, B, 2, 32], the rounds' pool
+    excesses, a0 and b0 [B, NW], states and positions; raises if a round's
+    pool passed its bound, else writes the states back into the
+    transcripts.  -> [(L_vec, R_vec, a0, b0)] per transcript."""
     nb, rounds = len(transcripts), len(encs)
     flat = torch.cat([torch.stack(encs).reshape(-1).to(torch.int64),
+                      torch.stack(excess).reshape(-1),
                       torch.stack([a_d, b_d], 1).reshape(-1),
                       state.reshape(-1).to(torch.int64),
                       meta.reshape(-1).to(torch.int64)]).cpu().numpy()
-    sizes = [rounds * nb * 64, 2 * nb * fl.NW, nb * 200, nb * 3]
+    sizes = [rounds * nb * 64, rounds, 2 * nb * fl.NW, nb * 200, nb * 3]
     parts, off = [], 0
     for size in sizes:
         parts.append(flat[off:off + size])
         off += size
+    if parts[1].max() > 0:
+        msm_serial.raise_excess(int(parts[1].max()))
     enc = parts[0].astype("uint8").reshape(rounds, nb, 2, 32)
-    ab = fl.limbs_to_ints(parts[1])
+    ab = fl.limbs_to_ints(parts[2])
     out = []
     for i, t in enumerate(transcripts):
-        strobe_device.write_back(t, parts[2][200 * i:200 * (i + 1)],
-                                 parts[3][3 * i:3 * (i + 1)])
+        strobe_device.write_back(t, parts[3][200 * i:200 * (i + 1)],
+                                 parts[4][3 * i:3 * (i + 1)])
         out.append(([bytes(enc[r, i, 0]) for r in range(rounds)],
                     [bytes(enc[r, i, 1]) for r in range(rounds)],
                     ab[2 * i], ab[2 * i + 1]))
@@ -101,7 +129,7 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
     state, meta = strobe_device.snapshot([transcript], dev)
     masks = round_masks(n_full, dev)
     src, n_seg, seg_masks, local = table.src, n_full, masks, 0
-    u, encs = None, []
+    u, encs, excess = None, [], []
     for rnd in range(len(masks)):
         if local:
             prev = seg_masks[local - 1]
@@ -116,16 +144,18 @@ def create(transcript, table, w_scalar: int, G_factors, H_factors, a, b,
             gc = hc = fl.const(fl.R, a_d).expand(n_seg, fl.NW)
             seg_masks, local = round_masks(n_seg, dev), 0
         dig = _scalars(a_d, b_d, gc, hc, wr2, seg_masks[local])
-        enc = ristretto_device.ristretto_compress(msm_serial.msm_digits_t(
-            dig, src, 2 * n_seg + 2, layout=table.layout)).view(1, 2, 32)
+        enc, ex = _round_msm(dig, src, 2 * n_seg + 2, table.layout)
+        enc = enc.view(1, 2, 32)
         state, meta, u_rows = strobe_device.transcript_round(state, meta,
                                                              enc)
         encs.append(enc)
+        excess.append(ex)
         u = u_rows[0].unbind(0)
         local += 1
     prev = seg_masks[local - 1]
     a_d, b_d, _, _ = _fold(a_d, b_d, gc, hc, *u, prev["ga"], prev["hi"])
-    return _finish([transcript], encs, a_d[:1], b_d[:1], state, meta)[0]
+    return _finish([transcript], encs, excess, a_d[:1], b_d[:1], state,
+                   meta)[0]
 
 
 def create_batched(transcripts, table, w_scalars, G_factors_list,
@@ -158,19 +188,21 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
                       dev)[:, None, :]                   # [B, 1, NW]
     state, meta = strobe_device.snapshot(transcripts, dev)
     masks = round_masks(n_full, dev)
-    u, encs = None, []
+    u, encs, excess = None, [], []
     for rnd, mk in enumerate(masks):
         if rnd:
             prev = masks[rnd - 1]
             a_d, b_d, gc, hc = _fold(a_d, b_d, gc, hc, *u, prev["ga"],
                                      prev["hi"])
         dig = _scalars(a_d, b_d, gc, hc, wr2, mk)       # [B*64, m]
-        enc = ristretto_device.ristretto_compress(msm_serial.msm_digits_t(
-            dig, table.src, table.m, layout=table.layout)).view(-1, 2, 32)
+        enc, ex = _round_msm(dig, table.src, table.m, table.layout)
+        enc = enc.view(-1, 2, 32)
         state, meta, u_rows = strobe_device.transcript_round(state, meta,
                                                              enc)
         encs.append(enc)
+        excess.append(ex)
         u = u_rows[:, :, None].unbind(1)                 # [B, 1, NW] each
     a_d, b_d, _, _ = _fold(a_d, b_d, gc, hc, *u, masks[-1]["ga"],
                            masks[-1]["hi"])
-    return _finish(transcripts, encs, a_d[:, 0], b_d[:, 0], state, meta)
+    return _finish(transcripts, encs, excess, a_d[:, 0], b_d[:, 0], state,
+                   meta)

@@ -1,21 +1,28 @@
 """Serial-bucket Pippenger MSM on the device — the port of the JAX package's
-ops/msm_serial.py (its readback planner with one fixed window width c = 8).
+ops/msm_serial.py (its shape-static device schedule with one fixed window
+width c = 8).
 
 One MSM of k scalar vectors over an n-point source:
 
   digits   signed c=8 recode, k*W windows of NB = 128 buckets each, int8
            [k*W, n]: on the host (ops/msm.signed_digits, uploaded once) or
            on the device (ops/flvec.digits_device).
-  schedule device: one sort of the packed (bucket, source row) entries and
-           one bincount; the [k*W*NB] bucket counts are the only readback.
-           The host picks the round budget T and splits a bucket with c
-           entries over ceil(c / T) consecutive pool lanes, so every lane
-           has at most T entries (bit-vector witnesses put ~n entries into
-           one bucket).  `idx_rows` gathers rounds t0..t1 of idx [T, P]
-           from the sorted stream.
-  K1       bucket_accumulate: one thread per pool lane, T mixed adds of
-           gathered affine rows [x | y | 2d*x*y] (128-byte rows), in
-           radix 2^32 (csrc/field32.cuh); canonical limbs out.
+  schedule device, from the shape alone (no readback): the round budget T
+           and the pool's lane count P come from a bound on the live
+           (non-zero) entries; one sort of the packed (bucket, source row)
+           slots, then searchsorted and cumsum give each bucket's entries
+           and lanes: a bucket with c entries splits over ceil(c / T)
+           consecutive pool lanes, so every lane has at most T entries
+           (bit-vector witnesses put ~n entries into one bucket), and
+           lanes past the buckets' own take the identity row.  The lanes
+           the buckets fill go out as a device scalar, read with the
+           result; P bounds them (`schedule`).  `idx_rows` gathers rounds
+           t0..t1 of idx [T, P] from the sorted stream.
+  K1       bucket_accumulate: one thread per pool lane, up to T mixed
+           adds of gathered affine rows [x | y | 2d*x*y] (128-byte rows),
+           in radix 2^32 (csrc/field32.cuh), stopping at the lane's first
+           entry of the identity row (the source's last); canonical limbs
+           out.
   K2       bucket_accumulate_cont: K1 started from a carried pool (the
            round chunks below).
   K3       bucket_merge: a group of G lanes per bucket (G from the pool's
@@ -94,9 +101,10 @@ table MSM) and returns the points as device columns, read back by the
 caller; `msm_digits_enc` (the commitments, the IPA rounds) returns their
 encodings, compressed on the device.
 
-Not ported, because they serve the TPU: the static tight/safe plans and
-their overflow re-run (remote round trips), the Mosaic/VMEM constants (lane
-padding, the rounds per grid step, scan width caps).
+Not ported, because they serve the TPU: the tight plan and its overflow
+re-run (the bound here is the safe one, so nothing re-runs), the
+Mosaic/VMEM constants (`_select_t`, lane padding, the rounds per grid step,
+scan width caps).
 """
 from typing import NamedTuple
 
@@ -117,9 +125,10 @@ LANES = 32                # a warp: per window (K4), per long bucket (K3)
 BUCKETS_PER_LANE = NB // LANES
 ROW = 32                  # int32 per source row: x | y | t2d | 2 pad = 128 B
 _2D = 2 * _D % _P
-# Round budget: T = ceil(entries / _LANE_TARGET), at least _MIN_ROUNDS, so
-# the pool has ~_LANE_TARGET lanes (one thread each; ~4 resident 128-thread
-# blocks per SM on 132 SMs want >= 64k) whatever the table size.
+# Round budget: T = ceil(live_max / _LANE_TARGET), at least _MIN_ROUNDS,
+# live_max a bound on the live entries (`pool_bound`), so a full pool has
+# ~_LANE_TARGET lanes (one thread each; ~4 resident 128-thread blocks per
+# SM on 132 SMs want >= 64k) whatever the table size.
 _LANE_TARGET = 1 << 16
 _MIN_ROUNDS = 4
 POINT_CHUNK = 1 << 17     # most source points per chunk (msm_digits_t)
@@ -140,7 +149,9 @@ def check_layout(layout):
 
 def bucket_accumulate(src, idx):
     """src int32 [S, ROW] affine rows; idx int32 [T, P] row per (round,
-    lane) -> int32 [4, NL, P] extended sums, lane p = sum_t row idx[t, p].
+    lane) -> int32 [4, NL, P] extended sums, lane p = sum_t row idx[t, p]
+    over the rounds before its first entry of row S - 1 (the schedule's
+    identity row, after a lane's entries: `schedule`).
 
     Replaces bulletproof_gadgets_tpu/ops/msm_serial.py:_bucket_kernel_rows.
     Bound on the H100: integer multiplies (7 field muls of 80 32x32->64
@@ -160,8 +171,8 @@ def bucket_accumulate(src, idx):
     if p == 0:
         return out
     native.launched("bucket_accumulate", lib.bpg_bucket_accumulate(
-        src.data_ptr(), idx.data_ptr(), t, p, out.data_ptr(),
-        native.stream(src)))
+        src.data_ptr(), idx.data_ptr(), t, p, src.shape[0] - 1,
+        out.data_ptr(), native.stream(src)))
     return out
 
 
@@ -173,19 +184,43 @@ def bucket_accumulate_plain(src, idx):
 def _accumulate_plain(src, idx, acc):
     if bool(((idx < 0) | (idx >= src.shape[0])).any()):
         raise ValueError("idx: row index outside src")
-    rows = src.to(torch.int64)
-    return _madd_rounds(acc, (rows[idx[r].long()].t()      # [ROW, P]
-                              for r in range(idx.shape[0])))
+    src3 = src[:, :3 * NL]
+    return _madd_rounds(acc, (
+        _mark_identity(src3, idx[r:r + 1], src.shape[0] - 1)[0].t()
+        for r in range(idx.shape[0])))
+
+
+def _mark_identity(src, idx, ident):
+    """src's rows gathered by idx [T, P] -> [T, P, cols], with x limb 0 set
+    to -1 in the slots of row `ident` (the schedule's identity row: canonical
+    limbs are never negative), where the bucket accumulation stops."""
+    g = src.index_select(0, idx.reshape(-1).long())
+    g[:, 0] = torch.where(idx.reshape(-1) == ident, -1, g[:, 0])
+    return g.view(idx.shape[0], idx.shape[1], src.shape[1])
 
 
 def _madd_rounds(acc, rounds):
     """acc plus each round's affine columns ([>= 3*NL, P]: x | y | t2d
     limbs), by mixed addition in round order -> int32 [4, NL, P], the
     canonical limbs of each coordinate (the kernels' output rule: they add
-    in radix 2^32, csrc/field32.cuh, so only values are shared)."""
+    in radix 2^32, csrc/field32.cuh, so only values are shared).
+
+    A lane stops at its first column marked as the identity row (x limb 0
+    = -1, `_mark_identity`): a schedule gives each lane its entries as a
+    prefix of its rounds and that row after them, so the kernels skip
+    those adds, and here the stopped lanes keep their sums (an add of the
+    identity would change the limbs, not the point)."""
+    live = None
     for g in rounds:
         g = g.to(torch.int64)
-        acc = curve.madd(acc, (g[0:NL], g[NL:2 * NL], g[2 * NL:3 * NL]))
+        x, y, t2d = g[0:NL], g[NL:2 * NL], g[2 * NL:3 * NL]
+        live = x[0] >= 0 if live is None else live & (x[0] >= 0)
+        lanes = live.nonzero().flatten()          # the adds of this round
+        if lanes.numel() == 0:
+            break
+        new = curve.madd(tuple(c[:, lanes] for c in acc),
+                         (x[:, lanes], y[:, lanes], t2d[:, lanes]))
+        acc = tuple(c.index_copy(1, lanes, v) for c, v in zip(acc, new))
     return curve.stack(tuple(fp.canonical(c) for c in acc))
 
 
@@ -229,8 +264,8 @@ def bucket_accumulate_cont(src, idx, acc):
         return out
     native.launched("bucket_accumulate_cont",
                     lib.bpg_bucket_accumulate_cont(
-                        src.data_ptr(), idx.data_ptr(), t, p, acc.data_ptr(),
-                        out.data_ptr(), native.stream(src)))
+                        src.data_ptr(), idx.data_ptr(), t, p, src.shape[0] - 1,
+                        acc.data_ptr(), out.data_ptr(), native.stream(src)))
     return out
 
 
@@ -244,18 +279,19 @@ def bucket_accumulate_cont_plain(src, idx, acc):
 def gather_cols(src, idx):
     """src int32 [S, ROW]; idx int32 [T, P] -> int32 [T, 3*NL, P]: round
     t's x | y | t2d limbs of the rows idx[t, :], limb-major (the JAX
-    package's _gather_g3; the rows are already int32, so nothing widens)."""
-    t, p = idx.shape
-    g = src[:, :3 * NL].index_select(0, idx.reshape(-1).long())
-    return g.view(t, p, 3 * NL).transpose(1, 2).contiguous()
+    package's _gather_g3; the rows are already int32, so nothing widens);
+    a slot of the identity row (the source's last) has x limb 0 = -1, the
+    mark where K8-K10 stop a lane."""
+    g = _mark_identity(src[:, :3 * NL], idx, src.shape[0] - 1)
+    return g.transpose(1, 2).contiguous()
 
 
 def gather_flat(src, idx):
     """src int32 [S, ROW]; idx int32 [T, P] -> int32 [3*NL, T*P]: column
     t*P + p holds the x | y | t2d limbs of row idx[t, p] (the JAX package's
-    flat gather for _bucket_kernel2d)."""
-    g = src[:, :3 * NL].index_select(0, idx.reshape(-1).long())
-    return g.t().contiguous()
+    flat gather for _bucket_kernel2d), marked as gather_cols marks them."""
+    return _mark_identity(src[:, :3 * NL], idx, src.shape[0] - 1).reshape(
+        -1, 3 * NL).t().contiguous()
 
 
 def bucket_accumulate_cols(g):
@@ -578,59 +614,97 @@ class Schedule(NamedTuple):
     lane p of the pool takes the sorted entries sv[first[p] + r] for
     rounds r with first[p] + r < end[p], else the identity row."""
     t: int                  # rounds T
-    sv: torch.Tensor        # int32 [entries] source rows, bucket-sorted
+    sv: torch.Tensor        # int32 [k*W*h] source rows, bucket-sorted (live
+    #                         entries first)
     first: torch.Tensor     # int64 [P] lane p's first position in sv
     end: torch.Tensor       # int64 [P] end of lane p's bucket in sv
     offs: torch.Tensor      # int32 [M] bucket b's first lane
     sub: torch.Tensor       # int32 [M] bucket b's lane count
     ident: int              # the identity row 2n
+    used: torch.Tensor      # int64 [] the lanes the buckets fill (<= P)
 
     @property
     def pool(self) -> int:
         return self.first.shape[0]
 
 
-def schedule(digits_t, n: int, lo: int = 0) -> Schedule:
+def pool_bound(wt: int, live_max: int):
+    """(T, P) of a schedule over wt windows with at most live_max live
+    entries: T = max(_MIN_ROUNDS, ceil(live_max / _LANE_TARGET)) and
+    P = min(M, live_max) + ceil(live_max / T), M = wt*NB buckets.
+
+    P bounds the lanes sum_b ceil(c_b / T) of any digits with at most
+    live_max live entries (c_b of them in bucket b): ceil(c/T) <= 1 +
+    floor(c/T) for c > 0, sum_b floor(c_b/T) <= floor(live/T), and at most
+    min(M, live) buckets are non-empty."""
+    t = max(_MIN_ROUNDS, -(-live_max // _LANE_TARGET))
+    return t, min(wt * NB, live_max) + -(-live_max // t)
+
+
+def schedule(digits_t, n: int, lo: int = 0, live_max: int = None
+             ) -> Schedule:
     """digits_t [k*W, h] signed digits (device) of the source points lo ..
-    lo+h-1 of an n-point source -> its Schedule, M = k*W*NB buckets.
-    Source layout [P | -P | identity]: point lo+i is row lo+i, its
-    negation row n+lo+i, the identity row 2n."""
+    lo+h-1 of an n-point source -> its Schedule, M = k*W*NB buckets, with
+    no read to the host.  Source layout [P | -P | identity]: point lo+i is
+    row lo+i, its negation row n+lo+i, the identity row 2n.
+
+    T and P come from the shape (`pool_bound`) with live_max, a bound on
+    the non-zero digits: the slot count k*W*h unless the caller knows a
+    smaller one (msm_digits_t's live_cols).  The lanes the buckets really
+    fill are `used`, a device scalar; lanes past them take the identity
+    row.  A caller's bound that is too small makes used pass P: the plain
+    version (digits on the CPU) raises here, and on a device the caller
+    reads `used - P` with its result (msm_digits_t's excess) and raises
+    there; the lanes past P are dropped and no kernel reads past the
+    pool."""
     dev = digits_t.device
     wt, h = digits_t.shape
     m = wt * NB
+    live_max = wt * h if live_max is None else min(live_max, wt * h)
+    t, p = pool_bound(wt, live_max)
     d = digits_t.to(torch.int32)
     a = d.abs()
-    live = a > 0
-    key = (torch.arange(wt, dtype=torch.int32, device=dev)[:, None] * NB
-           + a - 1)[live]
+    key = torch.where(a > 0, torch.arange(wt, dtype=torch.int32,
+                                          device=dev)[:, None] * NB + a - 1,
+                      m)                       # dead slots sort last
     i = torch.arange(lo, lo + h, dtype=torch.int32, device=dev)[None, :]
-    row = torch.where(d < 0, i + n, i)[live]
-    counts = torch.bincount(key, minlength=m).cpu().numpy()   # the readback
-    sv = (torch.sort((key.to(torch.int64) << 32) | row.to(torch.int64))
-          .values & 0xFFFFFFFF).to(torch.int32)
-    total = int(counts.sum())
-    t = max(_MIN_ROUNDS, -(-total // _LANE_TARGET))
-    sub = -(-counts // t)                          # lanes per bucket
-    offs = np.concatenate([[0], np.cumsum(sub)[:-1]])
-    coffs = np.concatenate([[0], np.cumsum(counts)])
-    pool = int(sub.sum())
-    sub_d = torch.from_numpy(sub.astype(np.int32)).to(dev)
-    offs_d = torch.from_numpy(offs.astype(np.int32)).to(dev)
-    coffs_d = torch.from_numpy(coffs.astype(np.int64)).to(dev)
-    seg = torch.repeat_interleave(torch.arange(m, device=dev),
-                                  sub_d.long(), output_size=pool)
-    lane = torch.arange(pool, device=dev)
+    row = torch.where(d < 0, i + n, i)
+    sk = torch.sort(((key.to(torch.int64) << 32)
+                     | row.to(torch.int64)).reshape(-1)).values
+    sv = (sk & 0xFFFFFFFF).to(torch.int32)
+    # bucket b's entries are sv[coffs[b] : coffs[b+1]]
+    coffs = torch.searchsorted(
+        sk, torch.arange(m + 1, dtype=torch.int64, device=dev) << 32)
+    sub = -(-(coffs[1:] - coffs[:-1]) // t)        # lanes per bucket
+    csum = torch.cumsum(sub, 0)
+    offs = csum - sub
+    used = csum[-1]
+    if dev.type == "cpu" and int(used) > p:
+        raise_excess(int(used) - p)
+    lane = torch.arange(p, device=dev)
+    seg = torch.searchsorted(csum, lane, right=True).clamp(max=m - 1)
     # lane p of bucket b takes sorted entries coffs[b] + (p - offs[b])*T + r
-    first = coffs_d[seg] + (lane - offs_d[seg].long()) * t
-    return Schedule(t, sv, first, coffs_d[seg + 1], offs_d, sub_d, 2 * n)
+    first = coffs[seg] + (lane - offs[seg]) * t
+    end = torch.where(lane < used, coffs[seg + 1], 0)
+    sub = torch.minimum(sub, (p - offs).clamp(min=0))     # lanes < P only
+    return Schedule(t, sv, first, end, offs.to(torch.int32),
+                    sub.to(torch.int32), 2 * n, used)
+
+
+def raise_excess(excess: int):
+    """An MSM's pool passed its bound by `excess` lanes: its points would
+    be wrong, so nothing returns them."""
+    raise RuntimeError(f"MSM schedule: the buckets fill {excess} lanes past "
+                       "the pool bound P (a live-entry bound too small)")
 
 
 def idx_rows(s: Schedule, t0: int, t1: int):
     """Rounds t0 .. t1-1 of the schedule's idx: int32 [t1 - t0, P], the
     source row each lane adds in each round (no larger array is made)."""
     dev = s.sv.device
-    if s.pool == 0:
-        return torch.empty((t1 - t0, 0), dtype=torch.int32, device=dev)
+    if s.pool == 0 or s.sv.shape[0] == 0:
+        return torch.full((t1 - t0, s.pool), s.ident, dtype=torch.int32,
+                          device=dev)
     rank = s.first[None, :] + torch.arange(t0, t1, device=dev)[:, None]
     return torch.where(rank < s.end[None, :],
                        s.sv[rank.clamp(max=s.sv.shape[0] - 1)],
@@ -712,58 +786,86 @@ def source_from_rows13(rows13) -> np.ndarray:
     return rows
 
 
-def points_from_cols(cols):
-    """int32 [4, NL, k] -> k host points (one readback)."""
-    arr = cols.cpu().numpy()
+def points_from_cols(cols, excess=None):
+    """int32 [4, NL, k] -> k host points (one readback, which also reads
+    msm_digits_t's `excess` when given and raises if a pool passed its
+    bound)."""
+    flat = cols.reshape(-1).to(torch.int64)
+    if excess is not None:
+        flat = torch.cat([flat, excess.reshape(1)])
+    arr = flat.cpu().numpy()
+    if excess is not None and arr[-1] > 0:
+        raise_excess(int(arr[-1]))
+    arr = arr[:cols.numel()].reshape(cols.shape)
     xs, ys, zs, ts = (fp.limbs_to_ints(arr[c]) for c in range(4))
     return [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
 
 
 def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
-                 slot_budget: int = None, layout: str = "rows"):
-    """digits_t int8 [k*W, n] on src's device over the rows src -> int32
-    [4, NL, k] extended points (no readback but the schedule's counts, one
-    per chunk).  More than max_stack_k() vectors split into launches of at
-    most that many.  Sources of more than `point_chunk` (default
-    POINT_CHUNK) points run in chunks whose window sums one K7 launch adds
-    before Horner; a chunk of more than `slot_budget` (default SLOT_BUDGET; 0:
-    no limit) T*P slots runs its rounds in chunks (K1, then K2; K8, then
-    K9 under the cols layout).  `layout` is one of LAYOUTS (`accumulate`);
-    every layout gives the same limbs."""
+                 slot_budget: int = None, layout: str = "rows",
+                 live_cols=None):
+    """digits_t int8 [k*W, n] on src's device over the rows src ->
+    (int32 [4, NL, k] extended points, excess), with no read to the host.
+    excess is an int64 device scalar: the most lanes by which a chunk's
+    buckets passed their pool bound P (<= 0: none did, and the points are
+    right); a caller reads it with the points and raises if it is positive
+    (points_from_cols, GeneratorTable, ops/ipa_fused).  On the CPU the
+    schedule raises at once instead.
+
+    live_cols (host ints [n], or None: k everywhere) bounds how many of the
+    k vectors have a non-zero scalar at each source point; a point chunk
+    lo..hi then has at most W * sum(live_cols[lo:hi]) live digits, its
+    schedule's live_max (the IPA's L and R pass one: each table point is
+    in at most one of them).  More than max_stack_k() vectors split into
+    launches of at most that many.  Sources of more than `point_chunk`
+    (default POINT_CHUNK) points run in chunks whose window sums one K7
+    launch adds before Horner; a chunk of more than `slot_budget` (default
+    SLOT_BUDGET; 0: no limit) T*P slots runs its rounds in chunks (K1,
+    then K2; K8, then K9 under the cols layout).  `layout` is one of
+    LAYOUTS (`accumulate`); every layout gives the same limbs."""
     check_layout(layout)
     k = digits_t.shape[0] // W
     if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
-            or digits_t.device != src.device):
+            or digits_t.device != src.device
+            or (live_cols is not None and len(live_cols) != n)):
         raise ValueError(f"digits {tuple(digits_t.shape)} on "
                          f"{digits_t.device} / source rows {src.shape[0]} on "
-                         f"{src.device}: expected [k*W, {n}] / {2 * n + 1}")
+                         f"{src.device}: expected [k*W, {n}] / {2 * n + 1}"
+                         " (live_cols: n entries)")
     k_max = max_stack_k()
     if k > k_max:
-        return torch.cat([msm_digits_t(digits_t[v * W:(v + k_max) * W], src,
-                                       n, point_chunk, slot_budget, layout)
-                          for v in range(0, k, k_max)], dim=2)
+        parts = [msm_digits_t(digits_t[v * W:(v + k_max) * W], src, n,
+                              point_chunk, slot_budget, layout, live_cols)
+                 for v in range(0, k, k_max)]
+        return (torch.cat([c for c, _ in parts], dim=2),
+                torch.stack([e for _, e in parts]).max())
     chunk = point_chunk or POINT_CHUNK
     budget = SLOT_BUDGET if slot_budget is None else slot_budget
-    parts = []
+    parts, excess = [], []
     for lo in range(0, max(n, 1), chunk):
-        s = schedule(digits_t[:, lo:lo + chunk], n, lo)
+        live_max = (None if live_cols is None else
+                    W * int(np.sum(live_cols[lo:lo + chunk], dtype=np.int64)))
+        s = schedule(digits_t[:, lo:lo + chunk], n, lo, live_max)
         parts.append(window_sums(bucket_merge(
             accumulate(src, s, budget, layout), s.offs, s.sub)))
+        excess.append(s.used - s.pool)
     ws = parts[0] if len(parts) == 1 else point_sum(torch.stack(parts))
-    return horner(ws, k)
+    return horner(ws, k), torch.stack(excess).max()
 
 
-def msm_digits_enc(digits_t, src, n: int, layout: str = "rows"):
-    """msm_digits_t's points, compressed on the device: uint8 [k, 32]
-    RFC 9496 encodings (ops/ristretto_device.ristretto_compress)."""
-    return ristretto_device.ristretto_compress(
-        msm_digits_t(digits_t, src, n, layout=layout))
+def msm_digits_enc(digits_t, src, n: int, layout: str = "rows",
+                   live_cols=None):
+    """msm_digits_t's points, compressed on the device: (uint8 [k, 32]
+    RFC 9496 encodings (ops/ristretto_device.ristretto_compress), excess)."""
+    cols, excess = msm_digits_t(digits_t, src, n, layout=layout,
+                                live_cols=live_cols)
+    return ristretto_device.ristretto_compress(cols), excess
 
 
 def msm_many_digits_t(digits_t: np.ndarray, src, n: int,
                       layout: str = "rows"):
     """digits_t int8 [k*W, n] (host) over the device rows src -> k points."""
-    return points_from_cols(msm_digits_t(
+    return points_from_cols(*msm_digits_t(
         torch.from_numpy(digits_t).to(src.device), src, n, layout=layout))
 
 
@@ -814,16 +916,25 @@ class GeneratorTable:
         return t
 
     def msm_digits(self, digits_t):
-        """Device digits int8 [k*W, m] (ops/flvec) -> k host points."""
-        return points_from_cols(msm_digits_t(digits_t, self.src, self.m,
-                                             layout=self.layout))
+        """Device digits int8 [k*W, m] (ops/flvec) -> k host points (one
+        readback, the pool check with it)."""
+        return points_from_cols(*msm_digits_t(digits_t, self.src, self.m,
+                                              layout=self.layout))
 
     def msm_digits_enc_launch(self, digits_t):
         """Device digits int8 [k*W, m] -> their MSM's encodings, uint8
-        [k, 32] on the device (finish with msm_digits_enc_finish)."""
+        [k, 32] on the device, with its pool excess (finish with
+        msm_digits_enc_finish)."""
         return msm_digits_enc(digits_t, self.src, self.m, self.layout)
 
     @staticmethod
     def msm_digits_enc_finish(pending):
-        """-> k 32-byte encodings (one readback)."""
-        return [bytes(row) for row in pending.cpu().numpy()]
+        """-> k 32-byte encodings (one readback, which also reads the pool
+        excess and raises if it is positive)."""
+        enc, excess = pending
+        arr = torch.cat([enc.reshape(-1).to(torch.int64),
+                         excess.reshape(1)]).cpu().numpy()
+        if arr[-1] > 0:
+            raise_excess(int(arr[-1]))
+        return [bytes(row) for row in
+                arr[:-1].astype(np.uint8).reshape(enc.shape)]

@@ -9,6 +9,11 @@ the port of the JAX package's ops/ristretto_device.py.
     squarings, 11 products; the JAX package's bit ladder takes ~500
     products for the same value).  Limbs are canonicalized by
     ops/fp.canonical; `canonical_bytes` writes them as bytes.
+  * points_from_uniform_bytes: RistrettoPoint::from_uniform_bytes for a
+    batch of 64-byte strings (the generator chains of core/gens at large
+    capacities): two elligator maps (sqrt_ratio_m1 below) and one
+    ops/curve.padd per string, the formulas of core/ristretto, so the
+    points' coordinates equal the host's exactly.
   * challenge_limbs: the transcript's 64 challenge bytes -> the std F_l row
     of their value mod l (Scalar::from_bytes_mod_order_wide);
     to_mont_dev, inv_mont: its Montgomery row and that of its inverse
@@ -23,11 +28,14 @@ core/ristretto.py and Python ints (tests/test_torch_ristretto_device.py).
 """
 import functools
 
+import numpy as np
 import torch
 
-from . import fl, fp
+from . import curve, fl, fp
 from .. import native
-from ..core.ristretto import INVSQRT_A_MINUS_D, P, SQRT_M1
+from ..core.ristretto import (D, D_MINUS_ONE_SQ, INVSQRT_A_MINUS_D,
+                              ONE_MINUS_D_SQ, P, SQRT_AD_MINUS_ONE, SQRT_M1,
+                              RistrettoPoint)
 from ..core.scalar import L
 
 NL = fp.NL
@@ -152,6 +160,75 @@ def ristretto_compress(cols):
     if k:
         native.launched("ristretto_compress", lib.bpg_ristretto_compress(
             cols.data_ptr(), k, out.data_ptr(), native.stream(cols)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# generator expansion: RistrettoPoint::from_uniform_bytes in bulk
+
+MAP_CHUNK = 1 << 18       # strings per batch of field ops (~20 MB a value)
+
+
+def _bytes_to_fe(b):
+    """uint8 [k, 32] little-endian (top bit clear) -> int64 [NL, k] limbs
+    in [0, 2^W) of the value (< 2^255, not reduced mod p)."""
+    v = torch.cat([b.to(torch.int64), torch.zeros_like(b[:, :4],
+                                                       dtype=torch.int64)], 1)
+    out = []
+    for i in range(NL):
+        off, sh = fp.S[i] >> 3, fp.S[i] & 7
+        word = (v[:, off] | (v[:, off + 1] << 8) | (v[:, off + 2] << 16)
+                | (v[:, off + 3] << 24))
+        out.append((word >> sh) & ((1 << fp.W[i]) - 1))
+    return torch.stack(out)
+
+
+def _elligator(t):
+    """core/ristretto.RistrettoPoint._elligator on limbs [NL, k] -> the
+    point (X, Y, Z, T) as carried limbs."""
+    one = _const(1, t)
+    r = fp.mul(_const(SQRT_M1, t), fp.mul(t, t))
+    u = fp.mul(fp.add(r, one), _const(ONE_MINUS_D_SQ, t))
+    d = _const(D, t)
+    v = fp.mul(fp.sub(fp.neg(one), fp.mul(r, d)), fp.add(r, d))
+    was_square, s = sqrt_ratio_m1(u, v)
+    s = torch.where(was_square, s, fp.neg(_abs(fp.mul(s, t))))
+    c = torch.where(was_square, _const(P - 1, t), r)
+    n = fp.sub(fp.mul(fp.mul(c, fp.sub(r, one)), _const(D_MINUS_ONE_SQ, t)),
+               v)
+    w0 = fp.mul(fp.add(s, s), v)
+    w1 = fp.mul(n, _const(SQRT_AD_MINUS_ONE, t))
+    ss = fp.mul(s, s)
+    w2, w3 = fp.sub(one, ss), fp.add(one, ss)
+    return tuple(fp.mul_many([w0, w2, w1, w0], [w3, w1, w3, w2]))
+
+
+def uniform_bytes_to_cols(b):
+    """uint8 [k, 64] on a device -> uint8 [4, k, 32]: the canonical bytes
+    of X, Y, Z, T of RistrettoPoint.from_uniform_bytes of each row (the
+    two halves' elligator points added by ops/curve.padd, which is
+    RistrettoPoint.__add__'s formula)."""
+    halves = b.view(-1, 2, 32).clone()
+    halves[:, :, 31] &= 0x7F
+    p1, p2 = (_elligator(_bytes_to_fe(halves[:, j])) for j in (0, 1))
+    return torch.stack([canonical_bytes(fp.canonical(c))
+                        for c in curve.padd(p1, p2)])
+
+
+def points_from_uniform_bytes(stream, device, chunk: int = MAP_CHUNK):
+    """stream: bytes of k 64-byte strings -> k RistrettoPoints equal, to the
+    coordinate, to RistrettoPoint.from_uniform_bytes of each string; the
+    field work runs on `device` in batches of `chunk` strings, then one
+    readback per batch."""
+    raw = np.frombuffer(stream, dtype=np.uint8).reshape(-1, 64)
+    out = []
+    for lo in range(0, raw.shape[0], chunk):
+        cols = uniform_bytes_to_cols(
+            torch.from_numpy(raw[lo:lo + chunk].copy()).to(device))
+        xs, ys, zs, ts = (
+            [int.from_bytes(bytes(row), "little") for row in c]
+            for c in cols.cpu().numpy())
+        out += [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
     return out
 
 

@@ -21,7 +21,9 @@ Phases (one line each; any failure raises and exits non-zero):
      merkle32 x 3 launch);
   3. whole MSMs against the host Pippenger `core.msm.msm_host` at n = 2^10
      (k = 1 and k = 3; random, bit-vector and all-zero vectors, scalars
-     >= L; the k = 3 case also in point chunks of 256);
+     >= L; the k = 3 case also in point chunks of 256; k = 2 on digits
+     that concentrate in one bucket per window: one scalar repeated, all
+     ones), each schedule's pool at or under its bound P;
   4. the main path: prove and verify the pinned statements of
      tests/port_pins.json (16-bit BOUND, LESS_THAN, the nine-line example,
      and merkle32: a depth-5 MiMC Merkle membership, 2^16 gens, a
@@ -33,7 +35,10 @@ Phases (one line each; any failure raises and exits non-zero):
      each), the host flattening / exp_iter / digit recode never called for
      example and merkle32, and every kernel launched by that run (launch
      counters reset just before it, read just after), the commitments'
-     compression and the IPA's transcript included;
+     compression and the IPA's transcript included; the warm merkle32
+     argument (ipa_fused.create) under torch.cuda's sync debug mode: no
+     synchronizing call in its round loop (its MSMs' schedules are built
+     on the device), its one readback at the end;
   5. K7 (point_sum, the chunk combine) against its plain version on
      merkle32's own chunk window sums recorded from that run, on one wide
      launch (2^17 lanes of real points) and on merkle32's commitment MSM
@@ -97,14 +102,32 @@ Phases (one line each; any failure raises and exits non-zero):
      bytes, 1 and 0 for a tampered proof; (e) warm merkle32 proved and
      verified with the C transcript and with the Python one in alternating
      pairs (bytes equal to the pin), host seconds per prove and verify,
-     and one IPA round's absorbs and challenge on each.
-Then the card's name and power limit, one JSON line of per-kernel results
-(with each kernel's bound: the larger of its products, PRODUCTS_PER_MUL
-a field mul (the two one-thread kernels: their word products, a squaring
-at its distinct pairs), over the card's int32 multiply rate and its bytes
-over the memory rate; launches are the single-proof path's, the batch
-path's, the two layout runs' and phase 11's requests together), and the
-last line {"ok": true, "device": {...}}.
+     and one IPA round's absorbs and challenge on each;
+ 12. the 2^20-gens stress circuit (scripts/run_stress_512_torch.run in
+     this process): its 4-leaf pin (merkle_tree4 of tests/port_pins.json)
+     byte-equal, then 512 leaves on `rows` (scripts/profile_stress.
+     stress_record): 1,986,769 constraints and 993,384 multipliers (the
+     JAX package's record), verify true, a tampered copy false, each
+     step's seconds, host peak RSS and device peak memory, launches per
+     kernel (counters reset just before its prove, read after its verify),
+     the commitments' k = 3 and the verifier's k = 1 table MSMs (17 point
+     chunks) under rows and cols, K1 per entry on a 2^17-point chunk of
+     this table (past the L2) beside merkle32's (within it), the host's
+     CPU count and the generator map's seconds, the device map held
+     against the host's first 4,096 generators; then the stress path's
+     own kernel inputs against the plain versions (tolerance 0): K1, K3,
+     K4 and K5 on the first 2^17-point chunk of the commitments' and the
+     verifier's table MSMs, K6 on its first fold (131,072 outputs), K7 on
+     its first chunk combine (D = 17); it fails if K2 launched there.
+Every phase prints its seconds.  Then the card's name and power limit, one
+JSON line of per-kernel results (with each kernel's bound: the larger of
+its products, PRODUCTS_PER_MUL a field mul (the two one-thread kernels:
+their word products, a squaring at its distinct pairs), over the card's
+int32 multiply rate and its bytes over the memory rate, where the bucket
+accumulations count only the entries before each lane's stop;
+launches are the single-proof path's, the batch
+path's, the two layout runs', phase 11's requests and phase 12's stress
+run together), and the last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -212,12 +235,30 @@ def timed(fn, reps):
 def bound(field_muls, tensors, products=PRODUCTS_PER_MUL):
     """(bound_ms, bound_by): the larger of the field muls' 32x32->64
     products over the int32 multiply rate and the bytes of the given
-    tensors (inputs read once, outputs written once) over the memory
-    rate."""
+    tensors (inputs read once, outputs written once; an int is a byte
+    count) over the memory rate."""
     ops_s = field_muls * products / INT32_MUL_PER_S
-    bytes_s = sum(t.numel() * t.element_size() for t in tensors) / BYTES_PER_S
+    bytes_s = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+                  for t in tensors) / BYTES_PER_S
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def accumulation_bytes(ms, idx, ident, src=None):
+    """The bytes a bucket accumulation must read on idx int32 [T, P] (K1,
+    K2: with their source rows src; K8-K10: gathered coordinates), where
+    each lane stops at its first slot of row `ident`: per live entry its
+    x | y | t2d (3*NL int32), and with src its idx word and each distinct
+    row once (ROW int32) instead; one 4-byte mark (idx word or x limb 0)
+    per lane that stops before its last round.  The pools read and written
+    are counted by the caller."""
+    live = idx != ident
+    entries = int(live.sum())
+    stops = int((~live).any(0).sum())
+    if src is None:
+        return entries * 3 * ms.NL * 4 + stops * 4
+    rows = int(idx[live].unique().numel())
+    return rows * src.shape[1] * 4 + (entries + stops) * 4
 
 
 def compare(name, label, kern, plain, shape, muls, tensors,
@@ -298,7 +339,8 @@ def check_kernels(ms, digits, src, n, label, only=None):
             lambda: ms.bucket_accumulate(src, idx),
             lambda: ms.bucket_accumulate_plain(src, idx),
             f"T={idx.shape[0]} P={idx.shape[1]}",
-            entries * MULS["madd"], (src, idx)),
+            entries * MULS["madd"],
+            (accumulation_bytes(ms, idx, 2 * n, src),)),
         "bucket_merge": (
             lambda: ms.bucket_merge(pool, offs, sub),
             lambda: ms.bucket_merge_plain(pool, offs, sub),
@@ -447,14 +489,14 @@ def d17_msm(ms, rd, digits, src, n):
     before = ms.LAUNCHES["point_sum"]
     ms.point_sum = record_sum
     try:
-        chunked = rd.ristretto_compress(ms.msm_digits_t(
-            digits, src, n, point_chunk=POINT_CHUNK_D17))
+        chunked = rd.ristretto_compress(msm_points(
+            ms, digits, src, n, point_chunk=POINT_CHUNK_D17))
         torch.cuda.synchronize()
     finally:
         ms.point_sum = point_sum
     launched = ms.LAUNCHES["point_sum"] - before
-    whole = rd.ristretto_compress(ms.msm_digits_t(digits, src, n,
-                                                  point_chunk=n))
+    whole = rd.ristretto_compress(msm_points(ms, digits, src, n,
+                                             point_chunk=n))
     d = stacks[0].shape[0] if stacks else 0
     if launched != 1 or d != 17 or not torch.equal(chunked, whole):
         raise AssertionError(f"merkle32 commitments in chunks of "
@@ -465,6 +507,15 @@ def d17_msm(ms, rd, digits, src, n):
         f"{POINT_CHUNK_D17}: one K7 launch, encodings equal to the unchunked "
         "MSM's")
     return check_point_sum(ms, stacks[0], "merkle32 commitments, 17 chunks")
+
+
+def msm_points(ms, *args, **kw):
+    """msm_digits_t's points [4, NL, k], its pool excess read (a sync)
+    and required to be <= 0."""
+    cols, excess = ms.msm_digits_t(*args, **kw)
+    if int(excess) > 0:
+        raise AssertionError(f"MSM pool past its bound by {int(excess)}")
+    return cols
 
 
 def launch_floor(ms, device):
@@ -729,13 +780,14 @@ def seeded_batch(pins, name, st, witnesses, **kw):
 def check_cont(ms, src, idx, acc):
     """Phase 7: K2 against its plain version on one round chunk of the
     merkle32 batch's stacked commitment MSM: K1's bound rule (7 field muls
-    per live entry) and the bytes of src, idx, the pool in and out."""
+    per live entry, accumulation_bytes) and the pool in and out."""
     entries = int((idx != src.shape[0] - 1).sum())
     return compare("bucket_accumulate_cont", "merkle32 x 3 round chunk",
                    lambda: ms.bucket_accumulate_cont(src, idx, acc),
                    lambda: ms.bucket_accumulate_cont_plain(src, idx, acc),
                    f"T={idx.shape[0]} P={idx.shape[1]}",
-                   entries * MULS["madd"], (src, idx, acc))
+                   entries * MULS["madd"],
+                   (accumulation_bytes(ms, idx, src.shape[0] - 1, src), acc))
 
 
 def round_chunk_times(ms, digits, src, n):
@@ -823,27 +875,30 @@ def bound64_per_witness(device):
 def check_layout_kernels(ms, ex_call, k2_in):
     """Phase 9 (a): K8 and K10 against their plain versions on the
     example's k=3 commitment launch, K9 on the merkle32 x 3 round chunk
-    (tolerance 0; 7 field muls per live entry, the bytes of the gathered
-    coordinates, the pool written and, for K9, read), and their pools
+    (tolerance 0; 7 field muls per live entry, the gathered coordinates'
+    bytes up to each lane's stop (accumulation_bytes), the pool written
+    and, for K9, read), and their pools
     against K1's / K2's on the same idx."""
     import torch
     digits, src, n = ex_call
     idx, _, _ = ms.plan(digits, n)
     t, p = idx.shape
     muls = int((idx != 2 * n).sum()) * MULS["madd"]
+    g_bytes = accumulation_bytes(ms, idx, 2 * n)
     pool = ms.bucket_accumulate(src, idx)
     label, shape = "example k=3 commitment launch", f"T={t} P={p}"
     res = {}
     g = ms.gather_cols(src, idx)
     res["bucket_accumulate_cols"] = compare(
         "bucket_accumulate_cols", label, lambda: ms.bucket_accumulate_cols(g),
-        lambda: ms.bucket_accumulate_cols_plain(g), shape, muls, (g,))
+        lambda: ms.bucket_accumulate_cols_plain(g), shape, muls, (g_bytes,))
     same = torch.equal(ms.bucket_accumulate_cols(g), pool)
     g = ms.gather_flat(src, idx)
     res["bucket_accumulate_flat"] = compare(
         "bucket_accumulate_flat", label,
         lambda: ms.bucket_accumulate_flat(g, t, p),
-        lambda: ms.bucket_accumulate_flat_plain(g, t, p), shape, muls, (g,))
+        lambda: ms.bucket_accumulate_flat_plain(g, t, p), shape, muls,
+        (g_bytes,))
     same &= torch.equal(ms.bucket_accumulate_flat(g, t, p), pool)
     src, idx, acc = k2_in
     g = ms.gather_cols(src, idx)
@@ -852,7 +907,8 @@ def check_layout_kernels(ms, ex_call, k2_in):
         lambda: ms.bucket_accumulate_cols_cont(g, acc),
         lambda: ms.bucket_accumulate_cols_cont_plain(g, acc),
         f"T={idx.shape[0]} P={idx.shape[1]}",
-        int((idx != src.shape[0] - 1).sum()) * MULS["madd"], (g, acc))
+        int((idx != src.shape[0] - 1).sum()) * MULS["madd"],
+        (accumulation_bytes(ms, idx, src.shape[0] - 1), acc))
     same &= torch.equal(ms.bucket_accumulate_cols_cont(g, acc),
                         ms.bucket_accumulate_cont(src, idx, acc))
     if not same:
@@ -908,8 +964,10 @@ def layout_msm_times(ms, label, digits, src, n):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        t_m, out = timed(lambda: ms.msm_digits_t(digits, src, n,
-                                                 layout=layout), 5)
+        t_m, (out, excess) = timed(lambda: ms.msm_digits_t(
+            digits, src, n, layout=layout), 5)
+        if int(excess) > 0:
+            raise AssertionError(f"msm_digits_t on {label}: pool excess")
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         if ref is None:
             ref = out
@@ -1249,6 +1307,142 @@ def surfaces(pins, ms, engine, direct):
     return launches
 
 
+def counted_syncs(torch, ipa_fused, fn, *args, **kw):
+    """fn(*args, **kw) (an ipa_fused.create) under torch.cuda's sync debug
+    mode -> (its result, {"before": synchronizing calls before its round
+    loop (the first `_scalars`), "rounds": those from there to `_finish`,
+    "finish": those in `_finish`, its one readback})."""
+    import warnings
+    marks = {}
+    scalars, finish = ipa_fused._scalars, ipa_fused._finish
+
+    def syncs():
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    def spy_scalars(*a):
+        marks.setdefault("loop", syncs())
+        return scalars(*a)
+
+    def spy_finish(*a):
+        marks["finish"] = syncs()
+        return finish(*a)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        ipa_fused._scalars, ipa_fused._finish = spy_scalars, spy_finish
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            ipa_fused._scalars, ipa_fused._finish = scalars, finish
+    total = syncs()
+    return out, {"before": marks["loop"],
+                 "rounds": marks["finish"] - marks["loop"],
+                 "finish": total - marks["finish"]}
+
+
+def stress_phase(pins, ms, m32_ns):
+    """Phase 12: the stress circuit (scripts/run_stress_512_torch.run) in
+    this process: first its 4-leaf pin (tests/port_pins.json "stress"),
+    then 512 leaves on `rows` through scripts/profile_stress.stress_record
+    (each phase's seconds, the counts against the JAX record, verify and
+    the tampered copy, host peak RSS, device peak memory, launches per
+    kernel; the commitments' k = 3 and the verifier's k = 1 table MSMs
+    under rows and cols; K1 per entry on the table's first 2^17-point
+    chunk beside merkle32's, m32_ns); the device generator map against the
+    host's first 4,096 points.  Returns the 512-leaf run's launches."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import run_stress_512_torch as stress
+    from profile_stress import stress_record
+    from bulletproof_gadgets_tpu_torch.core.gens import BulletproofGens
+    from bulletproof_gadgets_tpu_torch.core.ristretto import RistrettoPoint
+    from bulletproof_gadgets_tpu_torch.ops import ipa_fold
+    pin = pins["stress"]["merkle_tree4"]
+    t0 = time.time()
+    r4 = stress.run(pin["leaves"], "rows", "cuda")
+    got = (hashlib.sha256(r4["proof"]).hexdigest(),
+           hashlib.sha256(r4["coms"]).hexdigest(), r4["constraints"],
+           r4["multipliers"])
+    if got != (pin["proof_sha256"], pin["coms_sha256"], pin["constraints"],
+               pin["multipliers"]) or not r4["verify"] \
+            or r4["tampered_verifies"]:
+        raise AssertionError(f"merkle_tree4: {got}, verify {r4['verify']}, "
+                             f"tampered {r4['tampered_verifies']}: not the "
+                             "pin")
+    say(f"stress pin merkle_tree4 ({pin['multipliers']} multipliers, "
+        f"{pin['gens']} gens): proof and commitments equal the JAX "
+        f"package's, verify true, tampered false, {time.time() - t0:.1f} s")
+    say(f"host: {os.cpu_count()} CPUs")
+    calls, folds, sums = [], [], []
+    ladder_fold, point_sum = ipa_fold.ladder_fold, ms.point_sum
+
+    def record_fold(src, base, dig):
+        if not folds:
+            folds.append((src, base, dig))
+        return ladder_fold(src, base, dig)
+
+    def record_sum(ws):
+        if not sums:
+            sums.append(ws)
+        return point_sum(ws)
+    ipa_fold.ladder_fold, ms.point_sum = record_fold, record_sum
+    try:
+        rec = stress_record(stress.run, ms, 512, say, calls)
+    finally:
+        ipa_fold.ladder_fold, ms.point_sum = ladder_fold, point_sum
+    if any(rec[k] != v for k, v in stress.RECORD_512.items()) \
+            or not rec["verify"] or rec["tampered_verifies"]:
+        raise AssertionError(f"stress 512: {rec['constraints']} "
+                             f"constraints, {rec['multipliers']} "
+                             f"multipliers (want {stress.RECORD_512}), "
+                             f"verify {rec['verify']}, tampered "
+                             f"{rec['tampered_verifies']}")
+    idle = [k for k in ("bucket_accumulate", "bucket_merge", "window_sums",
+                        "horner", "ladder_fold", "point_sum",
+                        "ristretto_compress", "transcript_round")
+            if not rec["launches"].get(k)]
+    if idle:
+        raise AssertionError(f"stress 512: kernels not launched: {idle}")
+    g_dev = BulletproofGens(1 << 20, device="cuda").G(4096)
+    stream = hashlib.shake_256(b"GeneratorsChain" + b"G"
+                               + (0).to_bytes(4, "little")).digest(64 * 4096)
+    g_host = [RistrettoPoint.from_uniform_bytes(stream[64 * i:64 * (i + 1)])
+              for i in range(4096)]
+    if [(p.X, p.Y, p.Z, p.T) for p in g_dev] != \
+            [(p.X, p.Y, p.Z, p.T) for p in g_host]:
+        raise AssertionError("the device generator map differs from the "
+                             "host's on the first 4,096 points")
+    k1 = rec["msms"][f"k=3 over {2 * (1 << 20) + 2} points"]
+    say(f"stress 512 (2^20 gens, rows): 1,986,769 constraints and 993,384 "
+        f"multipliers as the JAX record, verify true, tampered false; "
+        f"generators {rec['seconds']['generators']:.2f} s (device map, "
+        f"equal to the host's first 4,096 points); host peak RSS "
+        f"{rec['rss_gb']:.2f} GB; device peak "
+        f"{rec['device_peak_bytes'] / 2**30:.2f} GiB; launches "
+        f"{rec['launches']} (K2 "
+        f"{'launched' if rec['launches'].get('bucket_accumulate_cont') else 'not launched'}"
+        f"); K1 on its first 2^17-point chunk (k = 3, past the L2) "
+        f"{k1['k1_ns_per_entry']:.4f} ns per entry against merkle32's "
+        f"{m32_ns:.4f} (within it)")
+    # the stress path's kernels on its own inputs: K1, K3-K5 on the first
+    # 2^17-point chunk of the commitments' and the verifier's table MSMs,
+    # K6 on the first fold (2^20 gens to 131,072 outputs), K7 on the first
+    # chunk combine (D = 17)
+    if rec["launches"].get("bucket_accumulate_cont"):
+        raise AssertionError("stress 512: K2 launched, and phase 12 holds "
+                             "no round chunk of it against its plain version")
+    for k, label in ((3, "commitments"), (1, "verifier")):
+        digits, src, n = next(c for c in calls if c[0].shape[0] == k * ms.W)
+        check_kernels(ms, digits[:, :ms.POINT_CHUNK], src, n,
+                      f"stress k={k} {label}, first 2^17-point chunk")
+    check_fold(ipa_fold, *folds[0], "stress first fold")
+    check_point_sum(ms, sums[0], "stress first chunk combine")
+    say("stress 512: K1, K3, K4, K5, K6 and K7 equal to their plain versions "
+        "(tolerance 0) on the stress path's inputs; its launches "
+        + ", ".join(f"{k} {v}" for k, v in sorted(rec["launches"].items())))
+    return rec["launches"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1276,6 +1470,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t_start = time.time()
+    marks = [t_start]
+
+    def phase_done(label):
+        now = time.time()
+        say(f"phase {label}: {now - marks[0]:.1f} s")
+        marks[0] = now
 
     # 1. build
     t0 = time.time()
@@ -1286,6 +1486,8 @@ def main() -> int:
     for line in native.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Function properties" in line:
             say(f"  ptxas: {line.strip()}")
+
+    phase_done(1)
 
     # 2. kernels against their plain versions on the example's own MSMs
     #    and its fold
@@ -1347,24 +1549,36 @@ def main() -> int:
     ex_call = calls[0]                           # phase 9's example launch
     del calls[:], folds[:]
 
+    phase_done(2)
+
     # 3. whole MSMs against the host Pippenger
-    pts = list(BulletproofGens(1024).G(1024))
+    pts = list(BulletproofGens(1024, device=device).G(1024))
     src = torch.from_numpy(ms.prep_source(pts)).to(device)
     r = random.Random(3)
     cases = {"k=1 random": ([[r.randrange(L) for _ in range(1024)]], None),
              "k=3 bits/zeros/>=L, point chunks of 256": (
                  [[r.randrange(2) for _ in range(1024)], [0] * 1024,
-                  [r.randrange(L, 4 * L) for _ in range(1024)]], 256)}
+                  [r.randrange(L, 4 * L) for _ in range(1024)]], 256),
+             "k=2 concentrated (one scalar repeated, all ones: every "
+             "window's digits equal)": (
+                 [[r.randrange(L)] * 1024, [1] * 1024], None)}
     for label, (vecs, chunk) in cases.items():
         digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
                                  for vec in vecs], axis=1)
         d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
-        got = ms.points_from_cols(ms.msm_digits_t(d.to(device), src, 1024,
-                                                  chunk))
+        s = ms.schedule(d.to(device)[:, :chunk or 1024], 1024)
+        if int(s.used) > s.pool:
+            raise AssertionError(f"MSM n=1024 {label}: pool {int(s.used)} "
+                                 f"> P {s.pool}")
+        got = ms.points_from_cols(*ms.msm_digits_t(d.to(device), src, 1024,
+                                                   chunk))
         want = [msm_host(v, pts) for v in vecs]
         if [g.compress() for g in got] != [w.compress() for w in want]:
             raise AssertionError(f"MSM n=1024 {label}: differs from msm_host")
-        say(f"msm n=1024 {label}: equal to msm_host")
+        say(f"msm n=1024 {label}: equal to msm_host; first chunk's pool "
+            f"{int(s.used)} <= P {s.pool}")
+
+    phase_done(3)
 
     # 4. the main path: prove and verify the pinned statements
     ipa_runs = []                                # [n, folds] per argument
@@ -1375,10 +1589,16 @@ def main() -> int:
     m_folds = []                                 # merkle32's K6 inputs
     compress, t_round = rd.ristretto_compress, sd.transcript_round
     rec = {}                  # merkle32's warm inputs of the new kernels
+    syncs = {}                # synchronizing calls of a warm argument
     direct = {}               # warm (prove s, verify s) per statement
 
     def count_ipa(transcript, table, w, G_factors, *a, **kw):
         ipa_runs.append([len(G_factors), 0])
+        if name == "merkle32" and times:         # the warm prove
+            out, syncs[name] = counted_syncs(
+                torch, ipa_fused, fused_create, transcript, table, w,
+                G_factors, *a, **kw)
+            return out
         return fused_create(transcript, table, w, G_factors, *a, **kw)
 
     def count_fold(*a):
@@ -1493,6 +1713,16 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels not launched by the main path: {idle}")
     say(f"main path launches: {launches}")
+    if syncs.get("merkle32", {}).get("rounds", 1) or \
+            syncs["merkle32"]["finish"] < 1:
+        raise AssertionError(f"warm merkle32 argument: synchronizing calls "
+                             f"{syncs}, want none in its round loop")
+    say(f"warm merkle32 ipa_fused.create (16 rounds) under the sync debug "
+        f"mode: {syncs['merkle32']['before']} synchronizing calls before "
+        f"its round loop, {syncs['merkle32']['rounds']} in it, "
+        f"{syncs['merkle32']['finish']} in its final readback")
+
+    phase_done(4)
 
     # 5. K7 on merkle32's chunk combine and on a wide launch; K1 per entry
     #    with and without point chunks on merkle32's commitment MSM; K6 on
@@ -1508,11 +1738,15 @@ def main() -> int:
     check_point_sum(ms, torch.stack([p, q]), "2^17 lanes of table points")
     d17_msm(ms, rd, m_digits, m_src, m_n)
     launch_floor(ms, device)
+    m32_ns = None
     for chunk in (ms.POINT_CHUNK >> 1, ms.POINT_CHUNK, 2 * ms.POINT_CHUNK):
         ns, total, entries = k1_per_entry(ms, m_digits, m_src, m_n, chunk)
+        m32_ns = ns if chunk == ms.POINT_CHUNK else m32_ns
         say(f"K1 on merkle32's k=3 commitment MSM ({m_n} points) in chunks "
             f"of {chunk} points ({-(-m_n // chunk)} chunks): {entries} "
             f"entries, {total:.3f} ms, {ns:.3f} ns per entry")
+
+    phase_done(5)
 
     # 6. the batch path; 7. K2 and the round chunks; 8. ms per witness
     batch_launches, k2_in, stacked, rows_batch = batch_path(pins, ms)
@@ -1523,6 +1757,8 @@ def main() -> int:
     results["bucket_accumulate_cont"] = check_cont(ms, *k2_in)
     round_chunk_times(ms, *stacked)
     bound64_per_witness(device)
+
+    phase_done("6-8")
 
     # 9. the pre-transposed layouts: kernels, layout times, the main path
     results.update(check_layout_kernels(ms, ex_call, k2_in))
@@ -1541,11 +1777,20 @@ def main() -> int:
                                    rows_batch["merkle32"])
                        for layout in ("cols", "flat")]
 
+    phase_done(9)
+
     # 10. the device transcript's kernels against their plain versions
     results.update(check_transcript_kernels(rd, sd, rec, device))
 
+    phase_done(10)
+
     # 11. the embedding surfaces: HTTP, C ABI, JNI; the host transcript
     surface_launches = surfaces(pins, ms, engine, direct)
+    phase_done(11)
+
+    # 12. the 2^20-gens 512-leaf stress circuit
+    stress_launches = stress_phase(pins, ms, m32_ns)
+    phase_done(12)
 
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)
@@ -1554,7 +1799,7 @@ def main() -> int:
          "replaces": replaces,
          "launches": launches[name] + batch_launches[name]
          + sum(run[name] for run in layout_launches)
-         + surface_launches[name],
+         + surface_launches[name] + stress_launches.get(name, 0),
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}

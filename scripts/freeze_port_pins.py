@@ -10,6 +10,7 @@ circuit sizes and the sha256 of the proof and of the `.coms` text.
     python scripts/freeze_port_pins.py                 # all six (an hour)
     python scripts/freeze_port_pins.py --only bound16  # a subset
     python scripts/freeze_port_pins.py --batch         # the batch pins
+    python scripts/freeze_port_pins.py --stress        # merkle_tree4
 
 `--batch` writes the batch pins instead (under "batches"): three 16-bit
 BOUND witnesses proved by the JAX package's `lang.batch.prove_batch` under
@@ -17,8 +18,14 @@ the same seed, once on the host table (`batch_bound16x3_host`) and once
 with the generator table forced onto the device path
 (`set_table_min_size(8)`: the lockstep protocol with its combined
 commitment MSM, t-poly fetch and grouped IPA, the Pallas kernels in
-interpret mode; `batch_bound16x3_table`).  A batch's bytes are not those
-of sequential proves: every witness is prepared (its commitments' blindings
+interpret mode; `batch_bound16x3_table`).  `--stress` writes the stress family's pin (under "stress"): the
+statement of the JAX package's scripts/run_stress_512.py at 4 leaves
+(`Hash(Hash(W, W), Hash(W, W))` over four copies of its leaf MW1, the
+root computed by `models/mimc`, BulletproofGens(2048 * leaves)), driven
+through `Prover.prove_gen` as that script drives it, under its own seed
+"stress-512", with host MSMs (~2 min); the port's
+scripts/run_stress_512_torch.py --leaves 4 must give its bytes.  A batch's
+bytes are not those of sequential proves: every witness is prepared (its commitments' blindings
 drawn) before any proof starts, and on a device table the lockstep draws
 every proof's commitment blindings before any proof's t-poly blindings.
 
@@ -38,6 +45,8 @@ import json
 import os
 import sys
 import time
+
+import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -216,11 +225,87 @@ def freeze_batch(pin: str) -> dict:
                             for _, _, c in results]}
 
 
+# the stress family (the JAX package's scripts/run_stress_512.py) at a
+# leaf count whose proof the host MSMs make in minutes
+STRESS = {"merkle_tree4": 4}
+STRESS_SEED = "stress-512"
+STRESS_LEAF = bytes.fromhex(
+    "0522a64d7b931e21760cf955a15fcc793e8a52b42a56ab03afddec8beb668749")
+
+
+def freeze_stress(name: str) -> dict:
+    from bulletproof_gadgets_tpu.core.commitments import (
+        commit_all_single, verifier_commit)
+    from bulletproof_gadgets_tpu.core.gens import (BulletproofGens,
+                                                   PedersenGens)
+    from bulletproof_gadgets_tpu.core.lc import to_lc
+    from bulletproof_gadgets_tpu.core.r1cs import Prover, Verifier
+    from bulletproof_gadgets_tpu.models.merkle_tree import (MerkleTree256,
+                                                            Hash, W)
+    from bulletproof_gadgets_tpu.utils.conversions import be_to_scalar
+    from bulletproof_gadgets_tpu.utils.merlin import Transcript
+    leaves = STRESS[name]
+    pat = Hash(W, W)
+    for _ in range(leaves.bit_length() - 2):
+        pat = Hash(pat, pat)
+    node = be_to_scalar(STRESS_LEAF).v
+    for _ in range(leaves.bit_length() - 1):
+        node = mimc_sponge([node, node])
+    root = to_lc(Scalar(node))
+    rng.set_seed(STRESS_SEED)
+    t0 = time.time()
+    try:
+        pc = PedersenGens.default()
+        bp = BulletproofGens(2048 * leaves, 1)
+        prover = Prover(pc, Transcript(b"MerkleTree"))
+        _, coms, variables = commit_all_single(prover, [STRESS_LEAF] * leaves)
+        MerkleTree256(root, [], [v.lc() for v in variables],
+                      pat).prove(prover, [], [])
+        gen = prover.prove_gen(bp)
+        resp = None
+        while True:                 # scripts/run_stress_512.py's loop
+            try:
+                kind, table, dig = gen.send(resp)
+            except StopIteration as stop:
+                proof = stop.value.to_bytes()
+                break
+            if kind == "msm":
+                resp = table.msm_digits(dig)
+            elif kind == "msm_enc":
+                resp = table.msm_digits_enc_finish(
+                    table.msm_digits_enc_launch(dig))
+            elif kind == "fused_ipa":
+                from bulletproof_gadgets_tpu.ops import ipa_fused
+                resp = ipa_fused.create(dig[0], table, *dig[1:])
+            else:
+                resp = np.asarray(dig)
+        t_prove = time.time() - t0
+        verifier = Verifier(Transcript(b"MerkleTree"))
+        w_vars = verifier_commit(verifier, coms)
+        MerkleTree256(root, [], [v.lc() for v in w_vars],
+                      pat).verify(verifier, w_vars, [])
+        from bulletproof_gadgets_tpu.core.proof import R1CSProof
+        verifier.verify(R1CSProof.from_bytes(proof), pc, bp)   # raises
+    finally:
+        rng.set_seed(None)
+    print(f"{name}: {prover.get_num_multiplications()} multipliers, "
+          f"{prover.num_constraints()} constraints, prove {t_prove:.1f} s",
+          flush=True)
+    return {"leaves": leaves, "seed": STRESS_SEED, "gens": 2048 * leaves,
+            "constraints": prover.num_constraints(),
+            "multipliers": prover.get_num_multiplications(),
+            "proof_len": len(proof),
+            "proof_sha256": hashlib.sha256(proof).hexdigest(),
+            "coms_sha256": hashlib.sha256(b"".join(coms)).hexdigest()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", nargs="*", choices=sorted(STATEMENTS))
     ap.add_argument("--batch", action="store_true",
                     help="freeze the batch pins only")
+    ap.add_argument("--stress", action="store_true",
+                    help="freeze the stress family's pin only")
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
     core_msm.set_table_min_size(1 << 30)
@@ -231,6 +316,8 @@ def main(argv=None):
         assert pins["seed"] == SEED, "pins were frozen under another seed"
     if args.batch:
         jobs = [("batches", pin, freeze_batch) for pin in BATCHES]
+    elif args.stress:
+        jobs = [("stress", name, freeze_stress) for name in STRESS]
     else:
         jobs = [("statements", name, freeze)
                 for name in args.only or list(STATEMENTS)]

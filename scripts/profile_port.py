@@ -7,8 +7,8 @@
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
 then --reps times warm (end-to-end wall times), then once warm with every
 stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
-stages (host digit recode, schedule incl. its count readback, the idx
-rows, each kernel, the result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
+stages (host digit recode, the device schedule, the idx rows, each
+kernel, the result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
 table, point-chunked past msm_serial.POINT_CHUNK points, its chunks
 combined by K7 `point_sum`), the device vectors (`flatten.flatten`, the
 commitment digits, `ProverVectors` build / t_poly / lr / factors,
@@ -70,15 +70,25 @@ def device_activity(prof):
     return busy_ns / 1e6, by_name
 
 
+def _copy_transcripts(ts):
+    """A transcript (or a list of them) at the same STROBE state: the C
+    transcript keeps its state in a ctypes buffer, which deepcopy cannot
+    copy, so a new one of the same class takes the state."""
+    if isinstance(ts, (list, tuple)):
+        return [_copy_transcripts(t) for t in ts]
+    dup = type(ts)(b"")
+    dup.set_strobe_state(*ts.strobe_state())
+    return dup
+
+
 def _replay(fn, record, reps):
     """Time, count and profile `fn` on the recorded arguments (a fresh
     copy of their host transcripts each run) -> a dict of results."""
-    import copy
     import warnings
     import torch
 
     def run():                  # the transcripts copied before the clock
-        args = (copy.deepcopy(record[0]),) + tuple(record[1:])
+        args = (_copy_transcripts(record[0]),) + tuple(record[1:])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn(*args)
@@ -127,7 +137,6 @@ def _replay(fn, record, reps):
 
 def ipa_main(args, pins):
     """--ipa / --batch: the argument alone, replayed (module docstring)."""
-    import copy
     import torch
     from bulletproof_gadgets_tpu_torch.lang.batch import prove_batch
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
@@ -145,7 +154,7 @@ def ipa_main(args, pins):
             records = []
 
             def spy(*a, **kw):
-                records.append((copy.deepcopy(a[0]),) + a[1:])
+                records.append((_copy_transcripts(a[0]),) + a[1:])
                 return real(*a, **kw)
             rng.set_seed(pins["seed"])
             if key == "ipa":

@@ -3,7 +3,7 @@
 (ladder_fold) on one NVIDIA GPU for the port package of a given checkout,
 so that two checkouts can be compared in turns on one card:
 
-    python3 scripts/time_scans.py [--root DIR] [--label NAME]
+    python3 scripts/time_scans.py [--root DIR] [--label NAME] [--pins]
 
 --root is the directory holding `bulletproof_gadgets_tpu_torch` (default:
 this checkout); its kernels are built there at first use.  The inputs are
@@ -16,10 +16,16 @@ commitment's does), and folds of 2,048 and 8,192 outputs of 16
 terms (the fold of a 2^14- and of a 2^16-gens table) with random table rows
 and random windows.  Each kernel is held against its plain version
 (tolerance 0), then timed with CUDA events (mean of 20 launches after a
-warm-up).  Prints one JSON line: the label, the card's name and power
-limit, and the ms of each kernel at each shape.
+warm-up).  --pins adds K1 on the pinned statements' own table MSMs: one
+prove + verify of less_than, example and merkle32 (tests/port_pins.json)
+with the checkout's package records the commitments' k = 3 and the
+verifier's k = 1 digits, and K1 runs on each point chunk's idx as that
+checkout's planner (`msm_serial.plan`) lays it out.  Prints one JSON
+line: the label, the card's name and power limit, and the ms of each
+kernel at each shape.
 """
 import argparse
+import inspect
 import json
 import os
 import random
@@ -48,11 +54,61 @@ def timed(fn):
     return start.elapsed_time(end) / REPS
 
 
+def pin_k1(ms, root):
+    """K1 on the commitments' and the verifier's table MSMs of the pinned
+    less_than, example and merkle32, per point chunk as this checkout
+    plans them: {"pin NAME k=K": {"T", "P", "entries", "k1_ms"}}."""
+    import torch
+    from bulletproof_gadgets_tpu_torch.lang.prove import prove
+    from bulletproof_gadgets_tpu_torch.lang.verify import verify
+    from bulletproof_gadgets_tpu_torch.utils import rng
+    with open(os.path.join(root, "tests", "port_pins.json")) as f:
+        pins = json.load(f)
+    calls, msm_digits_t = [], ms.msm_digits_t
+
+    def record(digits, src, n, *a, **kw):
+        calls.append((digits, src, n))
+        return msm_digits_t(digits, src, n, *a, **kw)
+    out = {}
+    for name in ("less_than", "example", "merkle32"):
+        st = pins["statements"][name]
+        del calls[:]
+        ms.msm_digits_t = record
+        try:
+            rng.set_seed(pins["seed"])
+            coms = []
+            proof, _ = prove(name, st["instance"], st["witness"],
+                             st["gadgets"], coms)
+            ok = verify(name, st["instance"], proof, "".join(coms),
+                        st["gadgets"])
+        finally:
+            ms.msm_digits_t = msm_digits_t
+            rng.set_seed(None)
+        if not ok:
+            raise AssertionError(f"{name}: verify returned false")
+        for digits, src, n in (calls[0], calls[-1]):
+            k = digits.shape[0] // ms.W
+            row = {"T": [], "P": [], "entries": 0, "k1_ms": 0.0}
+            for lo in range(0, n, ms.POINT_CHUNK):
+                idx, _, _ = ms.plan(digits[:, lo:lo + ms.POINT_CHUNK], n, lo)
+                if not torch.equal(ms.bucket_accumulate(src, idx),
+                                   ms.bucket_accumulate_plain(src, idx)):
+                    raise AssertionError(f"{name} k={k}: K1 differs from "
+                                         "its plain version")
+                row["T"].append(idx.shape[0])
+                row["P"].append(idx.shape[1])
+                row["entries"] += int((idx != 2 * n).sum())
+                row["k1_ms"] += timed(lambda: ms.bucket_accumulate(src, idx))
+            out[f"pin {name} k={k}"] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
+    ap.add_argument("--pins", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -65,7 +121,10 @@ def main() -> int:
     from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
 
     dev = torch.device("cuda")
-    gens = BulletproofGens(N_GENS)
+    # checkouts before the generator map took a device expand on the host
+    takes_device = "device" in inspect.signature(BulletproofGens).parameters
+    gens = BulletproofGens(N_GENS, **({"device": dev} if takes_device
+                                      else {}))
     pts = list(gens.G(N_GENS)) + list(gens.H(N_GENS)) + list(gens.G(2))
     n = len(pts)
     src = torch.from_numpy(ms.prep_source(pts)).to(dev)
@@ -113,6 +172,8 @@ def main() -> int:
         res[f"fold outputs={outputs}"] = {
             "ladder_fold_ms": timed(
                 lambda: ipa_fold.ladder_fold(src, base, dig))}
+    if args.pins:
+        res.update(pin_k1(ms, os.path.abspath(args.root)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()

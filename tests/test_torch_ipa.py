@@ -157,7 +157,7 @@ def test_fold_and_scalars_match_jax(rnd):
 
 def _table(n):
     pc = PedersenGens.default()
-    bp = BulletproofGens(n)
+    bp = BulletproofGens(n, device="cpu")
     return list(bp.G(n)) + list(bp.H(n)) + [pc.B, pc.B_blinding]
 
 
@@ -263,7 +263,7 @@ def test_ipa_matches_jax_host(n, fold_at, folds, monkeypatch):
     monkeypatch.setattr(ipa_fold, "materialize",
                         lambda *args: calls.append(args[3]) or real(*args))
     pc = PedersenGens.default()
-    bp = BulletproofGens(n)
+    bp = BulletproofGens(n, device="cpu")
     table = ms.GeneratorTable(list(bp.G(n)), list(bp.H(n)), pc.B,
                               pc.B_blinding, "cpu")
     t_port = Transcript(b"ipa-port-test")
@@ -321,7 +321,7 @@ def test_create_batched_matches_jax_host(counts, monkeypatch):
     args = [(_rand(50 + i, n), _rand(60 + i, n), _rand(70 + i, 2))
             for i in range(3)]
     pc = PedersenGens.default()
-    bp = BulletproofGens(n)
+    bp = BulletproofGens(n, device="cpu")
     table = ms.GeneratorTable(list(bp.G(n)), list(bp.H(n)), pc.B,
                               pc.B_blinding, "cpu")
     ts = [_port_transcript(b"batch-ipa", p, n) for p in priors]
@@ -338,9 +338,10 @@ def test_create_batched_matches_jax_host(counts, monkeypatch):
 
 def test_create_reads_back_once_per_round(monkeypatch):
     """A 64-gens argument (6 rounds) with one table fold: no point read
-    back (points_from_cols refuses), and the tensors it reads back are the
-    schedule's bucket counts, one per round, and the one result at the
-    end (Tensor.cpu counted)."""
+    back (points_from_cols refuses), and the one tensor it reads back is
+    the result at the end, with the rounds' pool excesses in it (Tensor.cpu
+    counted): the MSM schedule is built on the device from the shape, so
+    no round reads its bucket counts back."""
     n = 64
     _no_host_points(monkeypatch)
     folds, real_fold = [], ipa_fold.materialize
@@ -353,7 +354,7 @@ def test_create_reads_back_once_per_round(monkeypatch):
                         lambda self, *a, **kw: calls.append(self.shape)
                         or real_cpu(self, *a, **kw))
     pc = PedersenGens.default()
-    bp = BulletproofGens(n)
+    bp = BulletproofGens(n, device="cpu")
     table = ms.GeneratorTable(list(bp.G(n)), list(bp.H(n)), pc.B,
                               pc.B_blinding, "cpu")
     t = _port_transcript(b"readbacks", [], n)
@@ -362,5 +363,5 @@ def test_create_reads_back_once_per_round(monkeypatch):
     out = ipa_fused.create(t, table, 5, [1] * n, [1] * n, a, b, fold_at=2,
                            fold_min=4)
     assert len(out[0]) == 6 and folds == [n]
-    counts = [s for s in calls if s == (2 * ms.W * ms.NB,)]
-    assert len(counts) == 6 and len(calls) == 7
+    nw = ipa_fused.fl.NW
+    assert calls == [(6 * 64 + 6 + 2 * nw + 200 + 3,)]

@@ -42,7 +42,7 @@ def cuda():
 def stage_inputs(cuda):
     """One k=3 MSM's inputs to every stage: a bit vector, a half-zero
     vector and a random one over the first 2050 generators."""
-    gens = BulletproofGens(N_GENS)
+    gens = BulletproofGens(N_GENS, device="cpu")
     pts = list(gens.G(N_GENS)) + list(gens.H(N_GENS)) + list(gens.G(2))
     n = len(pts)
     src = torch.from_numpy(ms.prep_source(pts)).to(cuda)
@@ -186,7 +186,7 @@ def test_ladder_fold_equals_plain(cuda, monkeypatch, n_t, d):
     """K6 on small folds (n_t = 256, d = 4: 2 x 16 outputs of 16 terms;
     148 / 2: 2 x 37 of 4; 208 / 4: 2 x 13 of 16, odd output counts)
     against its plain version on the card, through materialize."""
-    gens = BulletproofGens(n_t)
+    gens = BulletproofGens(n_t, device="cpu")
     pc = PedersenGens.default()
     pts = list(gens.G(n_t)) + list(gens.H(n_t)) + [pc.B, pc.B_blinding]
     src = torch.from_numpy(ms.prep_source(pts)).to(cuda)
@@ -277,8 +277,9 @@ def test_chunked_msm_equals_host(stage_inputs):
     digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
     d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
     before = ms.LAUNCHES["point_sum"]
-    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
-                           point_chunk=512)
+    cols, excess = ms.msm_digits_t(d.to(src.device), src,
+                                   len(stage_inputs["pts"]), point_chunk=512)
+    assert int(excess) <= 0
     assert ms.LAUNCHES["point_sum"] == before + 1
     want = [msm_host(v, stage_inputs["pts"]) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
@@ -292,8 +293,8 @@ def test_round_chunked_msm_equals_host(stage_inputs):
     digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
     d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
     before = ms.LAUNCHES["bucket_accumulate_cont"]
-    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
-                           slot_budget=1)
+    cols, _ = ms.msm_digits_t(d.to(src.device), src,
+                              len(stage_inputs["pts"]), slot_budget=1)
     torch.cuda.synchronize()
     assert ms.LAUNCHES["bucket_accumulate_cont"] == \
         before + stage_inputs["idx"].shape[0] - 1
@@ -312,8 +313,9 @@ def test_msm_under_layout_equals_host(stage_inputs, layout):
     digits = np.concatenate([ms.signed_digits(v, ms.C) for v in vecs], 1)
     d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
     before = dict(ms.LAUNCHES)
-    cols = ms.msm_digits_t(d.to(src.device), src, len(stage_inputs["pts"]),
-                           point_chunk=512, slot_budget=1, layout=layout)
+    cols, _ = ms.msm_digits_t(d.to(src.device), src,
+                              len(stage_inputs["pts"]), point_chunk=512,
+                              slot_budget=1, layout=layout)
     torch.cuda.synchronize()
     ran = {k: ms.LAUNCHES[k] - before[k] for k in before
            if ms.LAUNCHES[k] != before[k]}
@@ -412,7 +414,7 @@ def test_device_ipa_equals_cpu(cuda):
     from bulletproof_gadgets_tpu_torch.utils.merlin import Transcript
     n, r = 64, random.Random(64)
     pc = PedersenGens.default()
-    gens = BulletproofGens(n)
+    gens = BulletproofGens(n, device="cpu")
     a = [r.randrange(L) for _ in range(n)]
     b = [r.randrange(L) for _ in range(n)]
     outs, ts = [], []

@@ -7,9 +7,12 @@ bucket_accumulate_flat).
 - Against the JAX package's kernels themselves (_bucket_kernel,
   _bucket_kernel_cont, _bucket_kernel2d), called through pl.pallas_call in
   interpret mode with the BlockSpecs its _window_sums_part builds, on the
-  same points and the same idx: every pool coordinate equal as a canonical
-  value mod p (both packages use the same mixed-add formula, so the
-  extended coordinates agree, not only the points).
+  same points and the same idx (each lane's entries a prefix of its rounds,
+  as a schedule gives them): every lane the same point, and on the lanes
+  whose rounds are all entries every pool coordinate equal as a canonical
+  value mod p (both packages use the same mixed-add formula; the JAX
+  kernels add the identity rows after a lane's entries, which changes its
+  extended coordinates, where the port's stop at the first).
 - Against K1/K2's plain versions on the same idx: equal limbs.
 - Whole MSMs under each layout against the JAX package's host MSM, with
   point chunks and round chunks.
@@ -37,6 +40,7 @@ from bulletproof_gadgets_tpu.ops.pallas_curve import _SUB_BIAS_COL
 from bulletproof_gadgets_tpu_torch.core import msm as port_msm
 from bulletproof_gadgets_tpu_torch.core.gens import (BulletproofGens,
                                                      PedersenGens)
+from bulletproof_gadgets_tpu_torch.core.ristretto import P
 from bulletproof_gadgets_tpu_torch.core.scalar import L
 from bulletproof_gadgets_tpu_torch.lang.batch import prove_batch
 from bulletproof_gadgets_tpu_torch.lang.prove import prove
@@ -57,7 +61,7 @@ KERNELS = {"cols": ("bucket_accumulate_cols", "bucket_accumulate_cols_cont"),
 @pytest.fixture(scope="module")
 def points():
     """The 1026 points of a 512-gens table [G | H | G_0 | G_1]."""
-    gens = BulletproofGens(512)
+    gens = BulletproofGens(512, device="cpu")
     return list(gens.G(512)) + list(gens.H(512)) + list(gens.G(2))
 
 
@@ -172,39 +176,58 @@ def _jax_k10(src13, idx):
 def shared_idx(points):
     """T = 16 rounds over P = 512 lanes of one idx into the rows of 300
     points (both packages' rows: the JAX package's prep_source and the
-    port's, carried over), about a quarter of the slots the identity row."""
+    port's, carried over); each lane's entries are a prefix of its rounds
+    and the identity row fills the rest, as a schedule gives them: half
+    the lanes full, the others with 0..16 entries (about a quarter of the
+    slots the identity row).  -> (src13, src, idx, full lanes)."""
     pts = points[:300]
     src13, n = jms.prep_source(_as_jax(pts))
     src = torch.from_numpy(ms.source_from_rows13(np.asarray(src13)))
     assert torch.equal(src, torch.from_numpy(ms.prep_source(pts)))
     r = np.random.default_rng(5)
     idx = r.integers(0, 2 * n, size=(T_ROUNDS, LANES), dtype=np.int32)
-    idx[r.random(idx.shape) < 0.25] = 2 * n
-    return src13, src, idx
+    live = np.where(r.random(LANES) < 0.5, T_ROUNDS,
+                    r.integers(0, T_ROUNDS + 1, LANES))
+    idx[np.arange(T_ROUNDS)[:, None] >= live[None, :]] = 2 * n
+    return src13, src, idx, live == T_ROUNDS
+
+
+def _assert_same_pools(got, want, full):
+    """Pools as canonical ints per coordinate (_port_pool / _jax_pool):
+    every lane the same point, and the full lanes' coordinates equal."""
+    def affine(pool):
+        return [(x * pow(z, P - 2, P) % P, y * pow(z, P - 2, P) % P)
+                for x, y, z in zip(*pool[:3])]
+    assert affine(got) == affine(want)
+    assert full.sum() > LANES // 3
+    for c in range(4):
+        assert [v for v, f in zip(got[c], full) if f] == \
+            [v for v, f in zip(want[c], full) if f]
 
 
 def test_cols_plain_matches_jax_bucket_kernel(shared_idx):
     """K8's plain version on gather_cols against _bucket_kernel (rc = 8,
     grid (1, 2)), and K9's plain version over rounds [8, 16) from K8's pool
     over [0, 8) against _bucket_kernel_cont from the JAX K8's pool."""
-    src13, src, idx = shared_idx
+    src13, src, idx, full = shared_idx
     g = ms.gather_cols(src, torch.from_numpy(idx))
     assert g.shape == (T_ROUNDS, 3 * ms.NL, LANES)
     want = _jax_pool(_jax_k8(src13, jnp.asarray(idx), RC))
-    assert _port_pool(ms.bucket_accumulate_cols(g)) == want
+    _assert_same_pools(_port_pool(ms.bucket_accumulate_cols(g)), want, full)
     head = _jax_k8(src13, jnp.asarray(idx[:RC]), RC)
     want = _jax_pool(_jax_k9(src13, jnp.asarray(idx[RC:]), tuple(head), RC))
     got = ms.bucket_accumulate_cols_cont(
         g[RC:].contiguous(), ms.bucket_accumulate_cols(g[:RC].contiguous()))
-    assert _port_pool(got) == want
+    _assert_same_pools(_port_pool(got), want, full)
 
 
 def test_flat_plain_matches_jax_bucket_kernel2d(shared_idx):
-    src13, src, idx = shared_idx
+    src13, src, idx, full = shared_idx
     g = ms.gather_flat(src, torch.from_numpy(idx))
     assert g.shape == (3 * ms.NL, T_ROUNDS * LANES)
     want = _jax_pool(_jax_k10(src13, jnp.asarray(idx)))
-    assert _port_pool(ms.bucket_accumulate_flat(g, T_ROUNDS, LANES)) == want
+    _assert_same_pools(
+        _port_pool(ms.bucket_accumulate_flat(g, T_ROUNDS, LANES)), want, full)
 
 
 # -- (2) against the port's own K1 / K2 --------------------------------------
@@ -244,8 +267,9 @@ def test_msm_under_layout_matches_host(points, layout, point_chunk,
     pts = points[:n]
     src = torch.from_numpy(ms.prep_source(pts))
     vecs = _vectors(n, seed=31)
-    cols = ms.msm_digits_t(_digits_t(vecs), src, n, point_chunk=point_chunk,
-                           slot_budget=slot_budget, layout=layout)
+    cols, _ = ms.msm_digits_t(_digits_t(vecs), src, n,
+                              point_chunk=point_chunk,
+                              slot_budget=slot_budget, layout=layout)
     want = [msm_host(v, _as_jax(pts)) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
         [w.compress() for w in want]
@@ -357,7 +381,7 @@ def test_engine_keeps_the_registered_layout(monkeypatch, registered):
     factory and the generic backend both run in it; an unknown layout
     raises wherever it is given."""
     n = 96                                             # 2n + 2 = 194 points
-    gens, pc = BulletproofGens(n), PedersenGens.default()
+    gens, pc = BulletproofGens(n, device="cpu"), PedersenGens.default()
     G, H = list(gens.G(n)), list(gens.H(n))
     seen = []
     monkeypatch.setattr(ms, "msm", lambda ks, pts, dev, layout: seen.append(

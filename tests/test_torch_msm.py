@@ -25,7 +25,7 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def points():
     """The 1026 points of a 512-gens table [G | H | G_0 | G_1]."""
-    gens = BulletproofGens(512)
+    gens = BulletproofGens(512, device="cpu")
     return list(gens.G(512)) + list(gens.H(512)) + list(gens.G(2))
 
 
@@ -68,9 +68,10 @@ def test_chunked_msm_matches_host(points, k, monkeypatch):
                         lambda ws: adds.append(ws.shape) or real(ws))
     digits = np.concatenate([ms.signed_digits([v % L for v in vec], ms.C)
                              for vec in vecs], 1)
-    cols = ms.msm_digits_t(
+    cols, excess = ms.msm_digits_t(
         torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8)),
         src, n, point_chunk=64)
+    assert int(excess) <= 0
     assert adds == [(5, 4, ms.NL, k * ms.W)]
     want = [msm_host(v, _as_jax(pts)) for v in vecs]
     assert [g.compress() for g in ms.points_from_cols(cols)] == \
@@ -234,8 +235,8 @@ def test_round_chunked_msm_matches_host(points, point_chunk, monkeypatch):
     real = ms.bucket_accumulate_cont_plain
     monkeypatch.setattr(ms, "bucket_accumulate_cont_plain",
                         lambda s, i, a: conts.append(i.shape) or real(s, i, a))
-    cols = ms.msm_digits_t(_digits_t(vecs), src, n, point_chunk=point_chunk,
-                           slot_budget=1)
+    cols, _ = ms.msm_digits_t(_digits_t(vecs), src, n,
+                              point_chunk=point_chunk, slot_budget=1)
     chunks = -(-n // (point_chunk or n))
     assert len(conts) >= 3 * chunks                  # T >= 4 per chunk
     assert all(shape[0] == 1 for shape in conts)
@@ -246,7 +247,7 @@ def test_round_chunked_msm_matches_host(points, point_chunk, monkeypatch):
     for budget in (0, None):
         assert torch.equal(ms.msm_digits_t(_digits_t(vecs), src, n,
                                            point_chunk=point_chunk,
-                                           slot_budget=budget), cols)
+                                           slot_budget=budget)[0], cols)
 
 
 def test_stack_cap_changes_no_point(points, monkeypatch):
@@ -256,13 +257,13 @@ def test_stack_cap_changes_no_point(points, monkeypatch):
     src = torch.from_numpy(ms.prep_source(points[:n]))
     vecs = _vectors(3, n, seed=41) + _vectors(1, n, seed=42)
     digits = _digits_t(vecs)
-    whole = ms.msm_digits_t(digits, src, n)
+    whole, _ = ms.msm_digits_t(digits, src, n)
     horners = []
     real = ms.horner
     monkeypatch.setattr(ms, "horner",
                         lambda ws, k: horners.append(k) or real(ws, k))
     monkeypatch.setattr(ms, "max_stack_k", lambda: 3)
-    assert torch.equal(ms.msm_digits_t(digits, src, n), whole)
+    assert torch.equal(ms.msm_digits_t(digits, src, n)[0], whole)
     assert horners == [3, 1]
 
 
@@ -341,7 +342,8 @@ def test_msm_digits_enc_matches_host(points):
                              for vec in vecs], 1)
     d = torch.from_numpy(np.ascontiguousarray(digits.T, dtype=np.int8))
     src = torch.from_numpy(ms.prep_source(pts))
-    enc = ms.msm_digits_enc(d, src, n)
+    enc, excess = ms.msm_digits_enc(d, src, n)
+    assert int(excess) <= 0
     assert enc.dtype == torch.uint8 and enc.shape == (3, 32)
     want = [msm_host(v, _as_jax(pts)).compress() for v in vecs]
     assert [bytes(r.tolist()) for r in enc] == want

@@ -43,7 +43,7 @@ def windows():
     """Bucket sums S [4, NL, len(WINDOWS) * NB] (a set bucket holds one
     table point or its negation, an empty one the identity, as K3 leaves
     them) and the host's sum_j (j+1) * S_j of each window."""
-    pts = list(BulletproofGens(N).G(N))
+    pts = list(BulletproofGens(N, device="cpu").G(N))
     table = pts + [-p for p in pts] + [RistrettoPoint.identity()]
     r = random.Random(11)
     idx = [2 * N] * (len(WINDOWS) * ms.NB)
@@ -130,7 +130,7 @@ def test_bucket_merge_plain_matches_host(g):
     """Buckets of SUBS lanes each (split_buckets), each lane a random table
     point or its negation: every bucket equals the host sum of its lanes,
     with K3's group width G = g."""
-    pts = list(BulletproofGens(N).G(N))
+    pts = list(BulletproofGens(N, device="cpu").G(N))
     table = pts + [-p for p in pts]
     r = random.Random(12 + g)
     offs, subs, p = split_buckets(SUBS, g, r)

@@ -10,6 +10,7 @@ loops, the host t-poly formulas) or, for flvec and the table digits, its
 jitted device functions on the CPU at small sizes.  The arithmetic is
 exact, so every comparison is equality of canonical values.
 """
+import functools
 import json
 import pathlib
 
@@ -122,7 +123,8 @@ def test_flatten_matches_jax_host(name):
     package's host loops, prover (wL, wR, wO, wV) and verifier (wc), on
     the same statement assembled by each package; a second call reuses
     the extraction cache."""
-    prover = _prepared(prove_prepared, rng, name)
+    prover = _prepared(functools.partial(prove_prepared, device="cpu"), rng,
+                       name)
     jprover = _prepared(jax_prove_prepared, jax_rng, name)
     n, m = len(prover.a_L), len(prover.v)
     assert (n, m, len(prover.constraints)) == \
