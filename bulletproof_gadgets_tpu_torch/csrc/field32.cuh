@@ -16,7 +16,9 @@
 // 10-limb core's 100 int64 products and its 12-step rounding carry: 127
 // SASS instructions against fe_mul's 221 (scripts/sass_counts.py).  Each
 // carry chain sits in one asm statement: the compiler keeps no carry flag
-// between statements.
+// between statements.  fe8_sqr: a square on the same pairs from 36 word
+// products (the 28 cross products once, doubled by funnel shifts, and the
+// 8 squares) and the same fold.
 // tests/test_torch_bounds.py models every instruction below on Python ints
 // and checks that no step needs more than its 32-bit word and the carry
 // flag, and that every result is < 2^256 and right mod p.
@@ -158,6 +160,46 @@ __device__ __forceinline__ void fe8_chain(uint32_t* acc, uint32_t x0,
 #undef BPG_CHAIN_ARGS
 }
 
+// Step 2 and 3 of the product (and of the square): E, O with E + O =
+// the 512-bit value (O[0] = 0) -> the value mod p as 8 words < 2^256, by
+// low + 38 high on E's and O's own pairs.  O[8] is overwritten.
+__device__ __forceinline__ fe8 fe8_fold(uint32_t* E, uint32_t* O) {
+  fe8_chain<kCarrySet>(E, E[8], E[10], E[12], E[14], 38);
+  fe8_chain<kCarryAdd>(E, O[8], O[10], O[12], O[14], 38);
+  const uint32_t e9 = E[9], e11 = E[11], e13 = E[13], e15 = E[15];
+  const uint32_t o9 = O[9], o11 = O[11], o13 = O[13], o15 = O[15];
+  O[8] = 0;
+  fe8_chain<kCarryNone>(O + 1, e9, e11, e13, e15, 38);
+  fe8_chain<kCarryNone>(O + 1, o9, o11, o13, o15, 38);
+  fe8 r;
+  asm("{\n\t.reg .u32 c;\n\t"
+      "add.cc.u32 %1, %9, %17;\n\t"
+      "addc.cc.u32 %2, %10, %18;\n\t"
+      "addc.cc.u32 %3, %11, %19;\n\t"
+      "addc.cc.u32 %4, %12, %20;\n\t"
+      "addc.cc.u32 %5, %13, %21;\n\t"
+      "addc.cc.u32 %6, %14, %22;\n\t"
+      "addc.cc.u32 %7, %15, %23;\n\t"
+      "addc.u32 c, %16, %24;\n\t"
+      "mul.lo.u32 c, c, 38;\n\t"
+      "add.cc.u32 %0, %8, c;\n\t"
+      "addc.cc.u32 %1, %1, 0;\n\t"
+      "addc.cc.u32 %2, %2, 0;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.cc.u32 %4, %4, 0;\n\t"
+      "addc.cc.u32 %5, %5, 0;\n\t"
+      "addc.cc.u32 %6, %6, 0;\n\t"
+      "addc.cc.u32 %7, %7, 0;\n\t"
+      "addc.u32 c, 0, 0;\n\t"
+      "mad.lo.u32 %0, c, 38, %0;\n\t}"
+      : "=&r"(r.w[0]), "=&r"(r.w[1]), "=&r"(r.w[2]), "=&r"(r.w[3]),
+        "=&r"(r.w[4]), "=&r"(r.w[5]), "=&r"(r.w[6]), "=&r"(r.w[7])
+      : "r"(E[0]), "r"(E[1]), "r"(E[2]), "r"(E[3]), "r"(E[4]), "r"(E[5]),
+        "r"(E[6]), "r"(E[7]), "r"(E[8]), "r"(O[1]), "r"(O[2]), "r"(O[3]),
+        "r"(O[4]), "r"(O[5]), "r"(O[6]), "r"(O[7]), "r"(O[8]));
+  return r;
+}
+
 // a * b mod p, any a, b < 2^256, result < 2^256.  A 32 x 32 product lands
 // as a word pair at word i + j (a's word j, b's word i); the products with
 // i + j even accumulate in E, on the pairs (0, 1), (2, 3), ..., those with
@@ -203,40 +245,112 @@ __device__ __forceinline__ fe8 fe8_mul(const fe8& a, const fe8& b) {
     fe8_chain<kCarryAdd>(O + i + 1 - o, x[1 - o], x[3 - o], x[5 - o],
                          x[7 - o], b.w[i]);
   }
-  fe8_chain<kCarrySet>(E, E[8], E[10], E[12], E[14], 38);
-  fe8_chain<kCarryAdd>(E, O[8], O[10], O[12], O[14], 38);
-  const uint32_t e9 = E[9], e11 = E[11], e13 = E[13], e15 = E[15];
-  const uint32_t o9 = O[9], o11 = O[11], o13 = O[13], o15 = O[15];
-  O[8] = 0;
-  fe8_chain<kCarryNone>(O + 1, e9, e11, e13, e15, 38);
-  fe8_chain<kCarryNone>(O + 1, o9, o11, o13, o15, 38);
-  fe8 r;
-  asm("{\n\t.reg .u32 c;\n\t"
-      "add.cc.u32 %1, %9, %17;\n\t"
-      "addc.cc.u32 %2, %10, %18;\n\t"
-      "addc.cc.u32 %3, %11, %19;\n\t"
-      "addc.cc.u32 %4, %12, %20;\n\t"
-      "addc.cc.u32 %5, %13, %21;\n\t"
-      "addc.cc.u32 %6, %14, %22;\n\t"
-      "addc.cc.u32 %7, %15, %23;\n\t"
-      "addc.u32 c, %16, %24;\n\t"
-      "mul.lo.u32 c, c, 38;\n\t"
-      "add.cc.u32 %0, %8, c;\n\t"
-      "addc.cc.u32 %1, %1, 0;\n\t"
-      "addc.cc.u32 %2, %2, 0;\n\t"
-      "addc.cc.u32 %3, %3, 0;\n\t"
-      "addc.cc.u32 %4, %4, 0;\n\t"
-      "addc.cc.u32 %5, %5, 0;\n\t"
-      "addc.cc.u32 %6, %6, 0;\n\t"
-      "addc.cc.u32 %7, %7, 0;\n\t"
-      "addc.u32 c, 0, 0;\n\t"
-      "mad.lo.u32 %0, c, 38, %0;\n\t}"
-      : "=&r"(r.w[0]), "=&r"(r.w[1]), "=&r"(r.w[2]), "=&r"(r.w[3]),
-        "=&r"(r.w[4]), "=&r"(r.w[5]), "=&r"(r.w[6]), "=&r"(r.w[7])
-      : "r"(E[0]), "r"(E[1]), "r"(E[2]), "r"(E[3]), "r"(E[4]), "r"(E[5]),
-        "r"(E[6]), "r"(E[7]), "r"(E[8]), "r"(O[1]), "r"(O[2]), "r"(O[3]),
-        "r"(O[4]), "r"(O[5]), "r"(O[6]), "r"(O[7]), "r"(O[8]));
-  return r;
+  return fe8_fold(E, O);
+}
+
+// acc[0 .. 2n-1] += x[j] * b as word pairs at 2j (j < n = 3, 2, 1), then
+// the carry out into acc[2n]: fe8_chain's kCarryAdd for the shorter rows
+// of the square
+__device__ __forceinline__ void fe8_chain3(uint32_t* acc, uint32_t x0,
+                                           uint32_t x1, uint32_t x2,
+                                           uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %7, %10, %0;\n\t"
+      "madc.hi.cc.u32 %1, %7, %10, %1;\n\t"
+      "madc.lo.cc.u32 %2, %8, %10, %2;\n\t"
+      "madc.hi.cc.u32 %3, %8, %10, %3;\n\t"
+      "madc.lo.cc.u32 %4, %9, %10, %4;\n\t"
+      "madc.hi.cc.u32 %5, %9, %10, %5;\n\t"
+      "addc.u32 %6, %6, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]),
+        "+r"(acc[4]), "+r"(acc[5]), "+r"(acc[6])
+      : "r"(x0), "r"(x1), "r"(x2), "r"(b));
+}
+
+__device__ __forceinline__ void fe8_chain2(uint32_t* acc, uint32_t x0,
+                                           uint32_t x1, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
+      "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
+      "madc.lo.cc.u32 %2, %6, %7, %2;\n\t"
+      "madc.hi.cc.u32 %3, %6, %7, %3;\n\t"
+      "addc.u32 %4, %4, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4])
+      : "r"(x0), "r"(x1), "r"(b));
+}
+
+__device__ __forceinline__ void fe8_chain1(uint32_t* acc, uint32_t x0,
+                                           uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+      "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+      "addc.u32 %2, %2, 0;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2])
+      : "r"(x0), "r"(b));
+}
+
+// a^2 mod p, any a < 2^256, result < 2^256: 36 word products (the 28
+// cross products a_i a_j, i < j, once, and the 8 squares) where fe8_mul
+// forms 64, on fe8_mul's pairing (a_i a_j lands at word i + j: E for i + j
+// even, O for odd) and with its fold:
+//   1. the cross products, row i = a_i (a_{i+1} .. a_7): row 0 with no
+//      addend and no carry, rows 1..6 one chain of 1-3 products into E and
+//      one into O, each with its carry word, which no earlier chain has
+//      reached beyond a carry of 1 (so the carry add cannot wrap);
+//      E + O = C = the sum of a_i a_j 2^(32 (i + j)), i < j, < 2^511;
+//   2. E, O <- 2 E, 2 O by funnel shifts (each < 2^511, so no bit is
+//      lost; O[0] stays 0), then E += the squares a_i^2 on its pairs
+//      (2i, 2i + 1), one chain with no carry out: 2 C + the squares = a^2
+//      < 2^512;
+//   3. fe8_fold, as fe8_mul: E + O = a^2, so its bounds hold as they are.
+__device__ __forceinline__ fe8 fe8_sqr(const fe8& a) {
+  const uint32_t* x = a.w;
+  uint32_t E[16], O[16];
+#pragma unroll
+  for (int k = 0; k < 16; k++) E[k] = O[k] = 0;
+#pragma unroll
+  for (int j = 1; j < 8; j++) {                 // row 0
+    uint32_t* acc = (j & 1) ? O : E;
+    acc[j] = x[0] * x[j];
+    acc[j + 1] = __umulhi(x[0], x[j]);
+  }
+  fe8_chain3(O + 3, x[2], x[4], x[6], x[1]);    // words 3, 5, 7; carry 9
+  fe8_chain3(E + 4, x[3], x[5], x[7], x[1]);    // 4, 6, 8; 10
+  fe8_chain3(O + 5, x[3], x[5], x[7], x[2]);    // 5, 7, 9; 11
+  fe8_chain2(E + 6, x[4], x[6], x[2]);          // 6, 8; 10
+  fe8_chain2(O + 7, x[4], x[6], x[3]);          // 7, 9; 11
+  fe8_chain2(E + 8, x[5], x[7], x[3]);          // 8, 10; 12
+  fe8_chain2(O + 9, x[5], x[7], x[4]);          // 9, 11; 13
+  fe8_chain1(E + 10, x[6], x[4]);               // 10; 12
+  fe8_chain1(O + 11, x[6], x[5]);               // 11; 13
+  fe8_chain1(E + 12, x[7], x[5]);               // 12; 14
+  fe8_chain1(O + 13, x[7], x[6]);               // 13; 15
+#pragma unroll
+  for (int k = 15; k > 0; k--) {
+    E[k] = __funnelshift_l(E[k - 1], E[k], 1);
+    O[k] = __funnelshift_l(O[k - 1], O[k], 1);
+  }
+  E[0] <<= 1;
+  asm("mad.lo.cc.u32 %0, %16, %16, %0;\n\t"
+      "madc.hi.cc.u32 %1, %16, %16, %1;\n\t"
+      "madc.lo.cc.u32 %2, %17, %17, %2;\n\t"
+      "madc.hi.cc.u32 %3, %17, %17, %3;\n\t"
+      "madc.lo.cc.u32 %4, %18, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %18, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %19, %19, %6;\n\t"
+      "madc.hi.cc.u32 %7, %19, %19, %7;\n\t"
+      "madc.lo.cc.u32 %8, %20, %20, %8;\n\t"
+      "madc.hi.cc.u32 %9, %20, %20, %9;\n\t"
+      "madc.lo.cc.u32 %10, %21, %21, %10;\n\t"
+      "madc.hi.cc.u32 %11, %21, %21, %11;\n\t"
+      "madc.lo.cc.u32 %12, %22, %22, %12;\n\t"
+      "madc.hi.cc.u32 %13, %22, %22, %13;\n\t"
+      "madc.lo.cc.u32 %14, %23, %23, %14;\n\t"
+      "madc.hi.u32 %15, %23, %23, %15;"
+      : "+r"(E[0]), "+r"(E[1]), "+r"(E[2]), "+r"(E[3]), "+r"(E[4]),
+        "+r"(E[5]), "+r"(E[6]), "+r"(E[7]), "+r"(E[8]), "+r"(E[9]),
+        "+r"(E[10]), "+r"(E[11]), "+r"(E[12]), "+r"(E[13]), "+r"(E[14]),
+        "+r"(E[15])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(x[4]), "r"(x[5]),
+        "r"(x[6]), "r"(x[7]));
+  return fe8_fold(E, O);
 }
 
 // canonical 26/25-bit limbs (field.cuh's layout, each in [0, 2^w)) -> the

@@ -1,8 +1,9 @@
 // F_l (l = 2^252 + 27742317777372353535851937790883648493, the Ristretto255
 // group order) for the transcript kernel (transcript.cu): Montgomery form
 // over 8 x 32-bit words with R8 = 2^256, the IPA challenge's reduction and
-// inversion, and the conversion to ops/fl.py's rows (10 limbs of 26 bits,
-// Montgomery R = 2^260), which the device fold consumes.
+// inversion (Bernstein-Yang divsteps, no chain of Montgomery products:
+// fl8_inv below), and the conversion to ops/fl.py's rows (10 limbs of 26
+// bits, Montgomery R = 2^260), which the device fold consumes.
 //
 // fl8_mont_mul is word-serial Montgomery multiplication (CIOS) with 64-bit
 // intermediates: each a_j * b_i + t_j + carry < 2^64.  With a < l and
@@ -11,7 +12,8 @@
 // the output is canonical (< l).  Every operand below is canonical or a
 // 32-byte string (< 2^256) multiplied by a canonical constant.
 // Plain version: ops/ristretto_device.py (challenge_limbs, to_mont_dev,
-// inv_mont) on ops/fl.py, which compute the same canonical values.
+// inv_mont) on ops/fl.py, which compute the same canonical values (the
+// inverse as u^(l-2)).
 #pragma once
 #include <stdint.h>
 
@@ -133,28 +135,231 @@ __device__ __forceinline__ fl8 fl8_from_wide_mont(const uint8_t* b) {
   return fl8_add(fl8_mont_mul(fl8_r2(), lo), fl8_mont_mul(fl8_r3(), hi));
 }
 
-// x^(l-2) = 1/x in Montgomery form, by 4-bit windows of l - 2 from the
-// top (ops/ristretto_device.inv_mont, the JAX package's inv_mont): a table
-// of x^0 .. x^15, then per window four squarings and, for a window that is
-// not zero, one product (252 squarings and 14 + 32 products)
-__device__ __noinline__ fl8 fl8_inv_mont(const fl8& x) {
-  // l - 2's 64 windows below the top one (which is 1), high to low
-  const uint8_t nib[63] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
-                           0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1,
-                           4, 13, 14, 15, 9, 13, 14, 10, 2, 15, 7, 9, 12,
-                           13, 6, 5, 8, 1, 2, 6, 3, 1, 10, 5, 12, 15, 5,
-                           13, 3, 14, 11};
-  fl8 tab[16];
-  tab[0] = fl8_one_mont();
-  tab[1] = x;
-  for (int i = 2; i < 16; i++) tab[i] = fl8_mont_mul(tab[i - 1], x);
-  fl8 acc = x;
-  for (int i = 0; i < 63; i++) {
+// ---------------------------------------------------------------------------
+// The inversion: Bernstein-Yang divsteps (safegcd), variable time, in
+// batches of 30 on 32-bit words, as libsecp256k1's modinv32_var runs them.
+// It replaces x^(l-2) by a chain of Montgomery products: no product of two
+// field values at all, only 32 x 32 -> 64 products of a value's limbs by
+// the batch's 2 x 2 matrix (entries of at most 2^30).  Variable time is
+// acceptable here: x is the IPA challenge, which the verifier recomputes
+// from public data (the transcript), so its running time leaks nothing.
+//
+// Values are signed-30 numbers: nine int32 limbs, value sum v[i] 2^(30 i),
+// limbs 0..7 in [0, 2^30) after each update and limb 8 signed.  f, g start
+// at l, x and d, e at 0, 1, with d x = f and e x = g (mod l) throughout.
+// Each batch takes 30 divsteps on the low words of f and g alone (they
+// depend on nothing else) and returns the matrix t scaled by 2^30; then
+// (f, g) <- t (f, g) / 2^30 exactly and (d, e) <- t (d, e) / 2^30 mod l,
+// the division made exact by adding a multiple of l that clears the low
+// 30 bits.  When g reaches 0, f = +-1 and x^-1 = +-d.  The inverse of 0 is
+// 0, as x^(l-2) gives: g = 0 from the start, so d stays 0.
+
+struct s30 {
+  int32_t v[9];
+};
+
+constexpr int32_t kM30 = 0x3fffffff;
+constexpr uint32_t kFlLInv30 = 0x2dab81e5u;  // l^-1 mod 2^30
+
+__device__ __forceinline__ s30 s30_l() {
+  s30 r = {{0x1cf5d3ed, 0x20498c69, 0x2f79cd65, 0x37be77a8, 0x14, 0, 0, 0,
+            0x1000}};
+  return r;
+}
+
+// x < 2^256 -> its signed-30 limbs: limb i is bits 30 i .. 30 i + 29
+__device__ __forceinline__ s30 s30_from_fl8(const fl8& x) {
+  s30 r;
+  r.v[0] = (int32_t)(x.w[0] & kM30);
 #pragma unroll
-    for (int s = 0; s < 4; s++) acc = fl8_mont_mul(acc, acc);
-    if (nib[i]) acc = fl8_mont_mul(acc, tab[nib[i]]);
+  for (int i = 1; i < 8; i++)
+    r.v[i] = (int32_t)(((x.w[i - 1] >> (32 - 2 * i)) | (x.w[i] << (2 * i))) &
+                       kM30);
+  r.v[8] = (int32_t)(x.w[7] >> 16);
+  return r;
+}
+
+// a value in [0, 2^256) with limbs 0..7 in [0, 2^30) -> its words
+__device__ __forceinline__ fl8 s30_to_fl8(const s30& a) {
+  fl8 r;
+#pragma unroll
+  for (int j = 0; j < 8; j++)
+    r.w[j] = ((uint32_t)a.v[j] >> (2 * j)) |
+             ((uint32_t)a.v[j + 1] << (30 - 2 * j));
+  return r;
+}
+
+// limbs 0..7 back into [0, 2^30), their carries into limb 8 (signed)
+__device__ __forceinline__ void s30_carry(s30& a) {
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    a.v[i + 1] += a.v[i] >> 30;
+    a.v[i] &= kM30;
   }
-  return acc;
+}
+
+// a + s l (s = 1 or -1) and -a, carried
+__device__ __forceinline__ void s30_add_l(s30& a, int32_t s) {
+  const s30 l = s30_l();
+#pragma unroll
+  for (int i = 0; i < 9; i++) a.v[i] += s * l.v[i];
+  s30_carry(a);
+}
+
+__device__ __forceinline__ void s30_neg(s30& a) {
+#pragma unroll
+  for (int i = 0; i < 9; i++) a.v[i] = -a.v[i];
+  s30_carry(a);
+}
+
+__device__ __forceinline__ int ctz32(uint32_t x) {  // x != 0
+#ifdef __CUDA_ARCH__
+  return __clz(__brev(x));
+#else
+  return __builtin_ctz(x);
+#endif
+}
+
+// f^-1 mod 2^32 for odd f: (3 f) ^ 2 is right mod 2^5, and each Newton
+// step doubles that (5, 10, 20, 40 bits)
+__device__ __forceinline__ uint32_t inv_mod32(uint32_t f) {
+  uint32_t x = (3 * f) ^ 2;
+  x *= 2 - f * x;
+  x *= 2 - f * x;
+  x *= 2 - f * x;
+  return x;
+}
+
+// The batch's matrix [[u, v], [q, r]], scaled by 2^30: after the batch
+// f' = (u f + v g) / 2^30 and g' = (q f + r g) / 2^30, with |u| + |v| and
+// |q| + |r| at most 2^30.
+struct s30_trans {
+  int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low words f0, g0 (f0 odd) from eta (= -delta), the
+// new eta returned.  A run of g's zero bits is one shift; with g odd and
+// eta >= 0 the next min(eta + 1, remaining) divsteps add f or not and
+// halve, which together add the multiple w = -g / f (mod 2^k) of f that
+// clears g's low k bits (f's inverse mod 2^32 is kept from the last swap);
+// with eta < 0, (f, g) <- (g, -f) first.  The invariants u f0 + v g0 =
+// f 2^(30 - i) and q f0 + r g0 = g 2^(30 - i) hold mod 2^32.
+__device__ __forceinline__ int divsteps_30(int eta, uint32_t f0, uint32_t g0,
+                                           s30_trans& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
+  uint32_t finv = 0u - inv_mod32(f);
+  int i = 30;
+  for (;;) {
+    const int zeros = ctz32(g | (0xffffffffu << i));
+    g >>= zeros;
+    u <<= zeros;
+    v <<= zeros;
+    eta -= zeros;
+    i -= zeros;
+    if (i == 0) break;
+    if (eta < 0) {
+      uint32_t tmp;
+      eta = -eta;
+      tmp = f; f = g; g = 0u - tmp;
+      tmp = u; u = q; q = 0u - tmp;
+      tmp = v; v = r; r = 0u - tmp;
+      finv = 0u - inv_mod32(f);
+    }
+    const int limit = eta + 1 < i ? eta + 1 : i;
+    const uint32_t w = (g * finv) & (0xffffffffu >> (32 - limit));
+    g += f * w;
+    q += u * w;
+    r += v * w;
+  }
+  t.u = (int32_t)u;
+  t.v = (int32_t)v;
+  t.q = (int32_t)q;
+  t.r = (int32_t)r;
+  return eta;
+}
+
+// (d, e) <- t (d, e) / 2^30 mod l, d and e in (-2l, l) before and after:
+// md, me start at u, q (d < 0) plus v, r (e < 0) and take the correction
+// that clears the low 30 bits of t (d, e) + l (md, me)
+__device__ __forceinline__ void update_de_30(s30& d, s30& e,
+                                             const s30_trans& t) {
+  const s30 l = s30_l();
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se);
+  int32_t me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d.v[0] + (int64_t)t.v * e.v[0];
+  int64_t ce = (int64_t)t.q * d.v[0] + (int64_t)t.r * e.v[0];
+  md -= (int32_t)((kFlLInv30 * (uint32_t)cd + (uint32_t)md) & kM30);
+  me -= (int32_t)((kFlLInv30 * (uint32_t)ce + (uint32_t)me) & kM30);
+  cd += (int64_t)l.v[0] * md;
+  ce += (int64_t)l.v[0] * me;
+  cd >>= 30;                                 // the low 30 bits are 0
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cd += (int64_t)t.u * d.v[i] + (int64_t)t.v * e.v[i] +
+          (int64_t)l.v[i] * md;
+    ce += (int64_t)t.q * d.v[i] + (int64_t)t.r * e.v[i] +
+          (int64_t)l.v[i] * me;
+    d.v[i - 1] = (int32_t)cd & kM30;
+    cd >>= 30;
+    e.v[i - 1] = (int32_t)ce & kM30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// (f, g) <- t (f, g) / 2^30, exact (the low 30 bits are 0 by the divsteps)
+__device__ __forceinline__ void update_fg_30(s30& f, s30& g,
+                                             const s30_trans& t) {
+  int64_t cf = (int64_t)t.u * f.v[0] + (int64_t)t.v * g.v[0];
+  int64_t cg = (int64_t)t.q * f.v[0] + (int64_t)t.r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    cf += (int64_t)t.u * f.v[i] + (int64_t)t.v * g.v[i];
+    cg += (int64_t)t.q * f.v[i] + (int64_t)t.r * g.v[i];
+    f.v[i - 1] = (int32_t)cf & kM30;
+    cf >>= 30;
+    g.v[i - 1] = (int32_t)cg & kM30;
+    cg >>= 30;
+  }
+  f.v[8] = (int32_t)cf;
+  g.v[8] = (int32_t)cg;
+}
+
+// x^-1 mod l (0 for 0), canonical; x < l.  eta starts at -1 (delta = 1).
+__device__ __forceinline__ fl8 fl8_inv(const fl8& x) {
+  s30 d = {{0, 0, 0, 0, 0, 0, 0, 0, 0}}, e = {{1, 0, 0, 0, 0, 0, 0, 0, 0}};
+  s30 f = s30_l(), g = s30_from_fl8(x);
+  int eta = -1;
+  for (;;) {
+    s30_trans t;
+    eta = divsteps_30(eta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+    update_de_30(d, e, t);
+    update_fg_30(f, g, t);
+    int32_t any = 0;
+#pragma unroll
+    for (int i = 0; i < 9; i++) any |= g.v[i];
+    if (!any) break;
+  }
+  if (f.v[8] < 0) s30_neg(d);                // f = -1: x^-1 = -d
+  while (d.v[8] < 0) s30_add_l(d, 1);        // d in (-2l, 2l) -> [0, 2l)
+  s30 r = d;
+  s30_add_l(r, -1);
+  const bool below = r.v[8] < 0;              // d < l: d, else d - l
+#pragma unroll
+  for (int i = 0; i < 9; i++) r.v[i] = below ? d.v[i] : r.v[i];
+  return s30_to_fl8(r);
+}
+
+// 1/x in Montgomery form: x_m = x 2^256 (mod l) -> x^-1 2^256.  fl8_inv
+// gives x_m^-1 = x^-1 2^-256, and one product by 2^768 (mod l) / 2^256
+// lifts it by 2^512.
+__device__ __forceinline__ fl8 fl8_inv_mont(const fl8& x_m) {
+  return fl8_mont_mul(fl8_inv(x_m), fl8_r3());
 }
 
 // Montgomery (R8) form -> ops/fl.py's Montgomery row (R = 2^260): x * 2^260

@@ -45,9 +45,13 @@ _FUNCS = {
     "bpg_point_sum": [_P, _I, _I, _P, _P],
     "bpg_ristretto_compress": [_P, _I, _P, _P],
     "bpg_transcript_round": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
-    # latency probes of one dependent field product (chip_smoke.py)
+    # one-thread latency probes of the two kernels' links (chip_smoke.py):
+    # n dependent fe8_mul, fe8_sqr, fl8_mont_mul, F_l inversions, f1600
+    "bpg_fe8_mul_chain": [_P, _I, _P, _P],
     "bpg_fe8_sqr_chain": [_P, _I, _P, _P],
-    "bpg_fl8_sqr_chain": [_P, _I, _P, _P],
+    "bpg_fl8_mul_chain": [_P, _I, _P, _P],
+    "bpg_fl8_inv_chain": [_P, _I, _P, _P],
+    "bpg_f1600_chain": [_P, _I, _P, _P],
 }
 
 LAUNCHES = {"bucket_accumulate": 0, "bucket_accumulate_cont": 0,

@@ -17,7 +17,8 @@ the port of the JAX package's ops/ristretto_device.py.
   * challenge_limbs: the transcript's 64 challenge bytes -> the std F_l row
     of their value mod l (Scalar::from_bytes_mod_order_wide);
     to_mont_dev, inv_mont: its Montgomery row and that of its inverse
-    (u^(l-2) by 4-bit windows, as the JAX package's inv_mont).  All
+    (u^(l-2) by 4-bit windows, as the JAX package's inv_mont; the kernel
+    inverts by divsteps instead, to the same canonical row).  All
     rows are canonical ops/fl rows, so they equal flvec.to_mont of the
     host's values limb for limb.  These are the plain version of the F_l
     part of the transcript kernel (ops/strobe_device.transcript_round).
@@ -145,12 +146,13 @@ def ristretto_compress(cols):
 
     Replaces the JAX package's jnp compression under jit
     (bulletproof_gadgets_tpu/ops/ristretto_device.py:173 compress_cols),
-    which has no Pallas kernel.  Bound on the H100: latency, ~290
-    dependent field products per point with only the k points of one MSM
-    (2 a round in the IPA, 3 for the commitments).  Design (csrc/
-    ristretto.cu): one thread per point on the radix-2^32 core (csrc/
-    field32.cuh), bytes out, so the transcript kernel reads them on the
-    card."""
+    which has no Pallas kernel.  Bound on the H100: latency, one chain of
+    278 dependent field operations per point (255 squarings) with only
+    the k points of one MSM (2 a round in the IPA, 3 for the commitments).
+    Design (csrc/ristretto.cu): one thread per point on the radix-2^32
+    core (csrc/field32.cuh), its squarings by the dedicated fe8_sqr, the
+    chain inlined (no stack), bytes out, so the transcript kernel reads
+    them on the card."""
     native.check(cols, "cols", (4, NL, None))
     lib = native.kernels_for(cols)
     if lib is None:
@@ -274,7 +276,9 @@ def to_mont_dev(x_std):
 def inv_mont(x_std):
     """std rows [..., NW] -> Montgomery rows of x^(l-2) = 1/x: a table of
     x^0 .. x^15, then per 4-bit window of l - 2 four squarings and, for a
-    window that is not zero, one product (csrc/field_l.cuh fl8_inv_mont)."""
+    window that is not zero, one product.  The plain version of the
+    transcript kernel's inversion (csrc/field_l.cuh fl8_inv_mont: divsteps,
+    another algorithm to the same canonical value)."""
     x_m = fl.to_mont(x_std)
     tab = [fl.const(fl.R, x_m).expand_as(x_m), x_m]
     for _ in range(14):

@@ -19,7 +19,8 @@ ops/fl Montgomery rows [B, 2, NW] for the next fold.  Its plain version,
 `transcript_round_plain`, runs `DeviceStrobe` (the duplex over a batch of
 states that share their positions, with ops/keccak_device.f1600) on each
 group of equal positions, and the challenge's F_l steps of
-ops/ristretto_device.  Each launch counts in native.LAUNCHES
+ops/ristretto_device (u^(l-2) where the kernel runs divsteps: the same
+canonical rows by another algorithm).  Each launch counts in native.LAUNCHES
 ["transcript_round"] (those of `challenge_rows`, its check-only mode, in
 ["challenge_rows"]); CPU tensors take the plain version.
 
@@ -161,6 +162,12 @@ def _check_round(states, meta, enc):
             raise ValueError(f"{name}: not contiguous")
 
 
+def _check_aligned(**tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name}: not 8-byte aligned")
+
+
 def transcript_round(states, meta, enc):
     """One IPA round's Fiat-Shamir step for B transcripts: states uint8
     [B, 200], meta int32 [B, 3] (pos, pos_begin, cur_flags), enc uint8
@@ -171,15 +178,21 @@ def transcript_round(states, meta, enc):
 
     Replaces the JAX package's jnp round step under jit
     (bulletproof_gadgets_tpu/ops/ipa_fused.py:122 `_round_fs`), which has
-    no Pallas kernel.  Bound on the H100: latency, one thread's byte machine
-    and F_l inversion per transcript.  Design (csrc/transcript.cu): one
-    thread per transcript, the state in local memory, the challenge reduced
-    and inverted in Montgomery form over 8 x 32-bit words (csrc/
-    field_l.cuh), so one launch per round and nothing read back."""
+    no Pallas kernel.  Bound on the H100: latency, one thread's chain per
+    transcript (its bytes through the duplex, one or two Keccak-f[1600],
+    the challenge's inversion).  Design (csrc/transcript.cu): one thread
+    and block per transcript, its state in a shared-memory work area and
+    each permutation's 25 lanes in registers (no local memory), the challenge
+    reduced in Montgomery form over 8 x 32-bit words and inverted by
+    Bernstein-Yang divsteps (csrc/field_l.cuh; variable time: u is public),
+    so one launch per round and nothing read back.  On CUDA the byte
+    tensors must be 8-byte aligned (the kernel moves them as 64-bit
+    words)."""
     _check_round(states, meta, enc)
     lib = native.kernels_for(states, meta, enc)
     if lib is None:
         return transcript_round_plain(states, meta, enc)
+    _check_aligned(states=states, enc=enc)
     b = states.shape[0]
     out_s, out_m = torch.empty_like(states), torch.empty_like(meta)
     u = torch.empty((b, 2, NW), dtype=torch.int64, device=states.device)
@@ -214,7 +227,9 @@ def challenge_rows(ch):
     """The F_l half of transcript_round on given challenge bytes: uint8
     [B, 64] -> int64 [B, 2, NW] (the same kernel, its STROBE part skipped;
     to hold the kernel's reduction and inversion against the plain version
-    on chosen bytes)."""
+    on chosen bytes).  The plain version, `challenge_rows_plain`, inverts
+    by u^(l-2) where the kernel runs divsteps: both give the canonical
+    rows."""
     if ch.dtype != torch.uint8 or ch.dim() != 2 or ch.shape[1] != 64 \
             or not ch.is_contiguous():
         raise ValueError(f"ch: {ch.dtype} {tuple(ch.shape)}, expected "
@@ -222,6 +237,7 @@ def challenge_rows(ch):
     lib = native.kernels_for(ch)
     if lib is None:
         return challenge_rows_plain(ch)
+    _check_aligned(ch=ch)
     b = ch.shape[0]
     u = torch.empty((b, 2, NW), dtype=torch.int64, device=ch.device)
     if b:

@@ -189,20 +189,30 @@ PRODUCTS_PER_MUL = 80
 PRODUCTS_PER_MUL_10LIMB = 100
 MULS = {"madd": 7, "padd": 9, "dbl": 8, "padd_cached": 8, "inv": 265}
 # The one-thread kernels' work in word products, a squaring counted at the
-# 36 distinct pairs of its 8 x 8 square: F_p (fe8) squaring 36 + 16 and
-# product 64 + 16 (the fold); F_l (fl8, Montgomery) squaring 36 + 48 and
-# product 64 + 48 (m = t0 l' and m * l's 5 non-zero words of l, 8 times).
+# 36 distinct pairs of its 8 x 8 square: F_p (fe8) squaring 36 + 16 (the
+# fold) and product 64 + 16; F_l (fl8, Montgomery) product 64 + 48 (m =
+# t0 l' and m * l's 5 non-zero words of l, 8 times).
 # ristretto_compress, per point: 255 squarings (251 in z^((p-5)/8)) and 29
-# products (the three by sqrt_ratio_m1's u = 1 left out); 279 of them form
-# one dependent chain.  transcript_round, per transcript: 252 squarings and
-# 50 products (2 for the wide reduction, 14 + 32 for the inversion's table
-# and windows, 2 conversions to ops/fl rows); 286 in one chain (the table
-# and one conversion off it).  Its one or two f1600 (~5k 32-bit logic ops
-# each, on the ALU pipe beside the multiply pipe) are left out of both.
+# products (SQRT_RATIO_M1 at u = 1 forms no product by u); one dependent
+# chain of 255 squarings (fe8_sqr) and 23 products (fe8_mul).
+# transcript_round, per transcript: 5 fl8 products (2 for the wide
+# reduction, 2 conversions to ops/fl rows, 1 back to Montgomery form after
+# the inversion) and the divsteps inversion's word products, which depend
+# on u (fl_inversion_products); one chain of the duplex's one or two
+# f1600 (~5k 32-bit logic ops each, on the ALU pipe, left out of the
+# operations bound), one product, the inversion with its product, and one
+# product.
 COMPRESS_WORD_PRODUCTS = 255 * (36 + 16) + 29 * (64 + 16)
-COMPRESS_CHAIN = 279
-TRANSCRIPT_WORD_PRODUCTS = 252 * (36 + 48) + 50 * (64 + 48)
-TRANSCRIPT_CHAIN = 286
+COMPRESS_CHAIN_SQR, COMPRESS_CHAIN_MUL = 255, 23
+TRANSCRIPT_FL8_PRODUCTS = 5
+FL8_WORD_PRODUCTS = 64 + 48
+ROUND_ABSORBED = 91     # bytes a round absorbs before its challenge
+FIELD_L = 2**252 + 27742317777372353535851937790883648493
+# challenge strings (64 bytes, little-endian) at the F_l part's edges: 0,
+# values around l, 2^252, 2^256 and 2^512
+CHALLENGE_EDGES = (0, 1, FIELD_L - 1, FIELD_L, FIELD_L + 1, 1 << 252,
+                   (1 << 256) - 1, 1 << 256, FIELD_L << 256,
+                   (1 << 512) - 1, (1 << 512) - FIELD_L)
 POINT_CHUNK_D17 = 1 << 13       # merkle32's 131,074-point table: 17 chunks
 BOUND64_BATCH = 8               # witnesses of phase 8's batch
 
@@ -218,12 +228,19 @@ def say(msg):
     print(msg, flush=True)
 
 
+SLEEP_CYCLES = 20_000_000   # ~10 ms of device time at 1.98 GHz
+
+
 def timed(fn, reps):
-    """Mean ms per call on the current stream (CUDA events), one warm-up."""
+    """Mean ms per call on the current stream (CUDA events), one warm-up.
+    The launches are queued behind a device sleep of SLEEP_CYCLES, so the
+    events time the card and not the host's launch rate (a one-thread
+    kernel takes less time than its wrapper's Python)."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -272,17 +289,21 @@ def compare(name, label, kern, plain, shape, muls, tensors,
     import torch
     t_k, out_k = timed(kern, 5)
     t_p, out_p = timed(plain, 1)
+    outs = list(out_k) if isinstance(out_k, tuple) else [out_k]
+    if isinstance(out_k, tuple):                 # compared as one vector
+        out_k, out_p = (torch.cat([t.flatten().to(torch.int64) for t in o])
+                        for o in (out_k, out_p))
     err = int((out_k.to(torch.int64) - out_p.to(torch.int64)).abs().max())
     if err != 0 or not torch.equal(out_k, out_p):
         raise AssertionError(f"{name} ({label}): kernel != plain, max abs "
                              f"err {err}")
     if chain_ms is None:
-        b_ms, b_by = bound(muls, list(tensors) + [out_k])
-        b10_ms, b10_by = bound(muls, list(tensors) + [out_k],
+        b_ms, b_by = bound(muls, list(tensors) + outs)
+        b10_ms, b10_by = bound(muls, list(tensors) + outs,
                                PRODUCTS_PER_MUL_10LIMB)
         beside = f"at 100 products per mul {b10_ms:.4g} ms, {b10_by}"
     else:
-        b_ms, b_by = bound(muls, list(tensors) + [out_k], 1)
+        b_ms, b_by = bound(muls, list(tensors) + outs, 1)
         beside = f"latency bound {chain_ms:.4g} ms"
     say(f"kernel {name} [{label}, {shape}]: equal to plain (tolerance 0, "
         f"max abs err {err}); {t_k:.3f} ms vs plain {t_p:.3f} ms; bound "
@@ -291,9 +312,12 @@ def compare(name, label, kern, plain, shape, muls, tensors,
 
 
 def product_latency(device, n=4096):
-    """ms of one dependent field product on one thread: fe8_mul (the
-    compression's) and fl8_mont_mul (the challenge's), from latency probes
-    squaring n times and once (CUDA events, mean of 5 each)."""
+    """ms of one link of the one-thread kernels' chains on one thread:
+    fe8_mul and fe8_sqr (the compression's), fl8_mont_mul, the divsteps
+    inversion fl8_inv_mont and Keccak-f[1600] (the transcript's), from
+    probes running n dependent links and one (CUDA events, mean of 5 each).
+    The inversion's time depends on its input: its probe inverts n values
+    (x + 1, then its inverse + 1, ...)."""
     import torch
     from bulletproof_gadgets_tpu_torch import native
     lib = native.load()
@@ -301,21 +325,63 @@ def product_latency(device, n=4096):
         [0x1234567, 0x89abcdef, 0x2468ace, 0x13579bdf, 0xfedcba9,
          0x76543210, 0xdeadbeef, 0x0abcdef0], dtype=np.uint32).view(
              np.int32)).to(device)
-    out = torch.empty_like(x)
+    lanes = torch.from_numpy(np.random.default_rng(1600).integers(
+        0, 256, 200, dtype=np.uint8)).to(device)
     lat = {}
-    for name, fn in (("fe8_mul", lib.bpg_fe8_sqr_chain),
-                     ("fl8_mont_mul", lib.bpg_fl8_sqr_chain)):
-        def run(m, fn=fn):
-            rc = fn(x.data_ptr(), m, out.data_ptr(), native.stream(x))
+    for name, fn, arg in (("fe8_mul", lib.bpg_fe8_mul_chain, x),
+                          ("fe8_sqr", lib.bpg_fe8_sqr_chain, x),
+                          ("fl8_mont_mul", lib.bpg_fl8_mul_chain, x),
+                          ("fl8_inv", lib.bpg_fl8_inv_chain, x),
+                          ("f1600", lib.bpg_f1600_chain, lanes)):
+        out = torch.empty_like(arg)
+
+        def run(m, fn=fn, arg=arg, out=out, name=name):
+            rc = fn(arg.data_ptr(), m, out.data_ptr(), native.stream(arg))
             if rc:
                 raise RuntimeError(f"{name} probe: cudaError {rc}")
         lat[name] = (timed(lambda: run(n), 5)[0]
                      - timed(lambda: run(1), 5)[0]) / (n - 1)
-    say(f"one dependent product on one thread: fe8_mul "
-        f"{1e6 * lat['fe8_mul']:.1f} ns, fl8_mont_mul "
-        f"{1e6 * lat['fl8_mont_mul']:.1f} ns (latency probes, {n} "
-        "squarings less one)")
+    say("one dependent link on one thread: " + ", ".join(
+        f"{k} {1e6 * v:.1f} ns" for k, v in lat.items())
+        + f" (latency probes, {n} links less one)")
     return lat
+
+
+def fl_inversion_products(x):
+    """The 32 x 32 -> 64 products that csrc/field_l.cuh fl8_inv forms on x
+    (< l), from a mirror of its loop on Python ints: per batch of 30
+    divsteps 99 (update_de 2 x 9 x 3 + 2, update_fg 2 x 9 x 2, f's inverse
+    mod 2^32 7), per inner step 4 (w and its three updates), per swap 7
+    (the new f's inverse)."""
+    m32, m30 = (1 << 32) - 1, (1 << 30) - 1
+    f, g, eta, total = FIELD_L, x, -1, 0
+    while True:
+        u, v, q, r, fw, gw, i = 1, 0, 0, 1, f & m30, g & m30, 30
+        total += 99
+        while True:
+            zeros = ((gw | (m32 << i & m32)) & -(gw | (m32 << i & m32))
+                     ).bit_length() - 1
+            gw >>= zeros
+            u, v = u << zeros & m32, v << zeros & m32
+            eta, i = eta - zeros, i - zeros
+            if i == 0:
+                break
+            if eta < 0:
+                eta = -eta
+                fw, gw = gw, -fw & m32
+                u, q = q, -u & m32
+                v, r = r, -v & m32
+                total += 7
+            limit = min(eta + 1, i)
+            w = (-gw * pow(fw, -1, 1 << 32)) & ((1 << limit) - 1)
+            gw = (gw + fw * w) & m32
+            q, r = (q + u * w) & m32, (r + v * w) & m32
+            total += 4
+        sgn = [c - (1 << 32) if c >> 31 else c for c in (u, v, q, r)]
+        f, g = ((sgn[0] * f + sgn[1] * g) >> 30,
+                (sgn[2] * f + sgn[3] * g) >> 30)
+        if g == 0:
+            return total
 
 
 def check_kernels(ms, digits, src, n, label, only=None):
@@ -556,7 +622,10 @@ def edge_points(n, seed):
     return torch.from_numpy(c.astype(np.int32)), [p.compress() for p in pts]
 
 
-def edge_transcripts(device, lengths=(0, 10, 60, 100, 120, 140, 150, 160)):
+EDGE_LENGTHS = (0, 10, 60, 100, 120, 140, 150, 160)
+
+
+def edge_transcripts(device, lengths=EDGE_LENGTHS):
     """Host transcripts whose STROBE position differs (a prior message of
     each length, so a round's absorbs cross the 166-byte rate at different
     bytes) -> their device states and positions."""
@@ -571,42 +640,69 @@ def edge_transcripts(device, lengths=(0, 10, 60, 100, 120, 140, 150, 160)):
     return sd.snapshot(ts, device)
 
 
+def challenge_strings(n, seed):
+    """CHALLENGE_EDGES as 64-byte strings, then seeded ones up to n."""
+    r = random.Random(seed)
+    return [v.to_bytes(64, "little") for v in CHALLENGE_EDGES] + [
+        bytes(r.randrange(256) for _ in range(64))
+        for _ in range(n - len(CHALLENGE_EDGES))]
+
+
+def transcript_work(meta, u_rows, lat):
+    """(word products, latency bound ms) of one transcript_round launch on
+    these inputs: per transcript TRANSCRIPT_FL8_PRODUCTS fl8 products and
+    its inversion's products (fl_inversion_products of u 2^256 mod l, u
+    from the output's Montgomery row); the chain of the slowest transcript,
+    one f1600 or two (when its absorbs reach the rate and leave pos != 0),
+    two fl8 products and one inversion."""
+    words, f1600 = 0, 1
+    for (pos, _, _), row in zip(meta.tolist(), u_rows[:, 0].tolist()):
+        u = (sum(int(v) << (26 * j) for j, v in enumerate(row))
+             * pow(2, -260, FIELD_L) % FIELD_L)
+        words += (TRANSCRIPT_FL8_PRODUCTS * FL8_WORD_PRODUCTS
+                  + fl_inversion_products((u << 256) % FIELD_L))
+        f1600 = max(f1600, 2 if pos + ROUND_ABSORBED > 166 else 1)
+    return words, (f1600 * lat["f1600"] + 2 * lat["fl8_mont_mul"]
+                   + lat["fl8_inv"])
+
+
 def check_transcript_kernels(rd, sd, rec, device):
     """Phase 10: ristretto_compress and transcript_round against their
-    plain versions (tolerance 0), with times and bounds, on merkle32's warm
-    prove (its commitments' points and the last IPA round's points, states,
-    positions and encodings, recorded in phase 4) and on edge inputs: the
-    identity and 63 random points with carried limbs (also against the
-    host's encodings); eight transcripts at eight byte positions over four
-    chained rounds; challenge_rows on 64 chosen challenge strings (below
-    and above l, near 2^512)."""
+    plain versions (tolerance 0), with times, bounds and latency bounds
+    (from the one-thread probes), on merkle32's warm prove (its
+    commitments' points and the last IPA round's points, states, positions
+    and encodings, recorded in phase 4) and on edge inputs: the identity
+    and 63 random points with carried limbs (also against the host's
+    encodings); 8 and 33 transcripts at the eight byte positions over four
+    chained rounds; challenge_rows on 64 chosen challenge strings
+    (CHALLENGE_EDGES, then seeded)."""
     import torch
-    from bulletproof_gadgets_tpu_torch.core.scalar import L
     res = {}
     lat = product_latency(device)
+    compress_chain = (COMPRESS_CHAIN_SQR * lat["fe8_sqr"]
+                      + COMPRESS_CHAIN_MUL * lat["fe8_mul"])
 
     def compress(cols, label):
         k = cols.shape[2]
         return compare("ristretto_compress", label,
                        lambda: rd.ristretto_compress(cols),
                        lambda: rd.compress_cols(cols), f"k={k}",
-                       k * COMPRESS_WORD_PRODUCTS, (cols,),
-                       COMPRESS_CHAIN * lat["fe8_mul"])
-
-    def flat(out):
-        return torch.cat([out[0].flatten().to(torch.int64),
-                          out[1].flatten().to(torch.int64),
-                          out[2].flatten()])
+                       k * COMPRESS_WORD_PRODUCTS, (cols,), compress_chain)
 
     def round_(state, meta, enc, label):
         b = state.shape[0]
+        words, chain = transcript_work(
+            meta, sd.transcript_round_plain(state, meta, enc)[2], lat)
         return compare("transcript_round", label,
-                       lambda: flat(sd.transcript_round(state, meta, enc)),
-                       lambda: flat(sd.transcript_round_plain(state, meta,
-                                                              enc)),
-                       f"B={b}", b * TRANSCRIPT_WORD_PRODUCTS,
-                       (state, meta, enc),
-                       TRANSCRIPT_CHAIN * lat["fl8_mont_mul"])
+                       lambda: sd.transcript_round(state, meta, enc),
+                       lambda: sd.transcript_round_plain(state, meta, enc),
+                       f"B={b}", words, (state, meta, enc), chain)
+    one_f1600 = lat["f1600"] + 2 * lat["fl8_mont_mul"] + lat["fl8_inv"]
+    say(f"latency bounds: ristretto_compress {compress_chain:.4g} ms "
+        f"({COMPRESS_CHAIN_SQR} fe8_sqr + {COMPRESS_CHAIN_MUL} fe8_mul); "
+        f"transcript_round {one_f1600:.4g} ms with one f1600 (f1600, 2 "
+        "fl8_mont_mul, fl8_inv), one f1600 more where a round's absorbs "
+        "reach the rate")
     compress(rec["commitments"], "merkle32 commitments")
     res["ristretto_compress"] = compress(rec["round"], "merkle32 IPA round")
     cols, want = edge_points(64, 10)
@@ -617,20 +713,17 @@ def check_transcript_kernels(rd, sd, rec, device):
         raise AssertionError("ristretto_compress != the host's encodings")
     res["transcript_round"] = round_(*rec["transcript"],
                                      "merkle32 IPA round")
-    state, meta = edge_transcripts(device)
     g = torch.Generator().manual_seed(4)
-    for i in range(4):
-        enc = torch.randint(0, 256, (state.shape[0], 2, 32), generator=g,
-                            dtype=torch.uint8).to(device)
-        round_(state, meta, enc, f"8 positions, round {i}")
-        state, meta, _ = sd.transcript_round(state, meta, enc)
-    vals = [0, 1, L - 1, L, L + 1, (1 << 256) - 1, 1 << 256, L << 256,
-            (1 << 512) - 1, (1 << 512) - L]
-    r = random.Random(64)
-    chs = [v.to_bytes(64, "little") for v in vals] + [
-        bytes(r.randrange(256) for _ in range(64)) for _ in range(54)]
-    ch = torch.tensor([list(c) for c in chs], dtype=torch.uint8,
-                      device=device)
+    for b in (8, 33):
+        state, meta = edge_transcripts(
+            device, tuple(EDGE_LENGTHS[i % 8] for i in range(b)))
+        for i in range(4):
+            enc = torch.randint(0, 256, (b, 2, 32), generator=g,
+                                dtype=torch.uint8).to(device)
+            round_(state, meta, enc, f"{b} at 8 positions, round {i}")
+            state, meta, _ = sd.transcript_round(state, meta, enc)
+    ch = torch.tensor([list(c) for c in challenge_strings(64, 64)],
+                      dtype=torch.uint8, device=device)
     got, plain = sd.challenge_rows(ch), sd.challenge_rows_plain(ch)
     if not torch.equal(got, plain):
         raise AssertionError("challenge_rows != plain on chosen strings")

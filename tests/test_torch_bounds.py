@@ -310,6 +310,12 @@ def fe8_mul(m, a, b):
         fe8_chain(m, E, i + o, a[o::2], b[i], "add" if i < 7 else "none")
         fe8_chain(m, O, i + 1 - o, a[1 - o::2], b[i], "add")
     assert value(E) + value(O) == value(a) * value(b)
+    return fe8_fold(m, E, O)
+
+
+def fe8_fold(m, E, O):
+    """E + O (O[0] = 0) -> 8 words < 2^256, equal mod p."""
+    assert O[0] == 0
     fe8_chain(m, E, 0, E[8::2], 38, "set")
     fe8_chain(m, E, 0, O[8::2], 38, "add")
     odd_hi = E[9::2], O[9::2]
@@ -326,6 +332,43 @@ def fe8_mul(m, a, b):
     m.hits["mul_fold3"] += c
     r[0] = m.mad("lo", c, 38, r[0], False, False)
     return r
+
+
+def fe8_chain_n(m, acc, k, xs, b):
+    """fe8_chain3/2/1: acc[k..k+2n-1] += xs[j] * b at k + 2j, then the
+    carry out added to acc[k + 2n]."""
+    for j, x in enumerate(xs):
+        acc[k + 2 * j] = m.mad("lo", x, b, acc[k + 2 * j], True, j > 0)
+        acc[k + 2 * j + 1] = m.mad("hi", x, b, acc[k + 2 * j + 1], True,
+                                   True)
+    acc[k + 2 * len(xs)] = m.add(acc[k + 2 * len(xs)], 0, False, True)
+
+
+def fe8_sqr(m, a):
+    E, O = [0] * 16, [0] * 16
+    for j in range(1, 8):                    # row 0: no addend, no carry
+        acc = O if j & 1 else E
+        acc[j], acc[j + 1] = (a[0] * a[j]) & M32, (a[0] * a[j]) >> 32
+    for acc, k, js, i in ((O, 3, (2, 4, 6), 1), (E, 4, (3, 5, 7), 1),
+                          (O, 5, (3, 5, 7), 2), (E, 6, (4, 6), 2),
+                          (O, 7, (4, 6), 3), (E, 8, (5, 7), 3),
+                          (O, 9, (5, 7), 4), (E, 10, (6,), 4),
+                          (O, 11, (6,), 5), (E, 12, (7,), 5),
+                          (O, 13, (7,), 6)):
+        assert all(k + 2 * n == i + j for n, j in enumerate(js))
+        fe8_chain_n(m, acc, k, [a[j] for j in js], a[i])
+    cross = sum(a[i] * a[j] << (32 * (i + j)) for i in range(8)
+                for j in range(i + 1, 8))
+    assert value(E) + value(O) == cross
+    for acc in (E, O):                       # funnel shifts: x 2
+        assert acc[15] >> 31 == 0
+        acc[:] = [(acc[0] << 1) & M32] + [
+            ((acc[k] << 1) | (acc[k - 1] >> 31)) & M32 for k in range(1, 16)]
+    for i in range(8):                       # the squares on E's pairs
+        E[2 * i] = m.mad("lo", a[i], a[i], E[2 * i], True, i > 0)
+        E[2 * i + 1] = m.mad("hi", a[i], a[i], E[2 * i + 1], i < 7, True)
+    assert value(E) + value(O) == value(a) ** 2
+    return fe8_fold(m, E, O)
 
 
 def fe8_sub_p_if_ge(m, a):
@@ -395,6 +438,26 @@ def test_field32_model_matches_python_ints():
         assert limbs == fp.int_to_limbs(a)
         assert value(fe8_from_limbs(limbs)) == a % P8
     assert all(m.hits.values()), m.hits
+
+
+def test_field32_sqr_model_matches_python_ints():
+    """fe8_sqr of csrc/field32.cuh, modelled instruction for instruction
+    on the edge and seeded operands: each square is < 2^256 and equal mod
+    p to a^2 (and to fe8_mul(a, a) mod p), no instruction needs more than
+    its 32-bit word and the carry flag (the rows' carry words included),
+    and the fold's rare last carry is reached."""
+    import random
+    r = random.Random(36)
+    m = Ptx()
+    top = (1 << 256) - 1
+    # the fold's last carry: squares of 2^256 - 1 - k for small k (51 of
+    # these 64 reach it; no random operand does)
+    ops = _edge_operands() + [top - k for k in range(64)] + [
+        r.randrange(1 << 256) for _ in range(2000)]
+    for a in ops:
+        got = value(fe8_sqr(m, words(a)))
+        assert got < 1 << 256 and got % P8 == a * a % P8, a
+    assert m.hits["mul_fold3"], m.hits
 
 
 def test_field32_madd_model_matches_plain_madd():

@@ -405,6 +405,63 @@ def test_transcript_round_equals_plain(cuda):
     assert torch.equal(got.cpu(), sd.challenge_rows_plain(ch))
 
 
+@pytest.mark.parametrize("k", [1, 2, 3, 64])
+def test_ristretto_compress_at_edges(cuda, k):
+    """ristretto_compress on the identity and k - 1 seeded points with
+    carried limbs (chip_smoke.edge_points) in one launch, against its
+    plain version (tolerance 0) and the host's encodings."""
+    from bulletproof_gadgets_tpu_torch.ops import ristretto_device as rd
+    cols, want = _chip_smoke().edge_points(k, 100 + k)
+    cols = cols.to(cuda)
+    before = ms.LAUNCHES["ristretto_compress"]
+    got = rd.ristretto_compress(cols)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["ristretto_compress"] == before + 1
+    assert torch.equal(got, rd.compress_cols(cols))
+    assert [bytes(row) for row in got.cpu().numpy()] == want
+
+
+@pytest.mark.parametrize("b", [1, 8, 33])
+def test_transcript_round_at_edge_positions(cuda, b):
+    """transcript_round on b transcripts at chip_smoke's eight byte
+    positions (cycled), four chained rounds of seeded encodings, one
+    launch each, against its plain version (states, positions, rows:
+    tolerance 0)."""
+    from bulletproof_gadgets_tpu_torch.ops import strobe_device as sd
+    smoke = _chip_smoke()
+    state, meta = smoke.edge_transcripts(
+        cuda, tuple(smoke.EDGE_LENGTHS[i % 8] for i in range(b)))
+    p_state, p_meta = state.cpu(), meta.cpu()
+    rng = np.random.default_rng(b)
+    for _ in range(4):
+        enc = torch.from_numpy(rng.integers(0, 256, (b, 2, 32),
+                                            dtype=np.uint8))
+        before = ms.LAUNCHES["transcript_round"]
+        state, meta, u = sd.transcript_round(state, meta, enc.to(cuda))
+        torch.cuda.synchronize()
+        assert ms.LAUNCHES["transcript_round"] == before + 1
+        p_state, p_meta, p_u = sd.transcript_round_plain(p_state, p_meta,
+                                                         enc)
+        assert torch.equal(state.cpu(), p_state)
+        assert torch.equal(meta.cpu(), p_meta)
+        assert torch.equal(u.cpu(), p_u)
+
+
+def test_challenge_rows_on_edge_strings(cuda):
+    """challenge_rows on chip_smoke's CHALLENGE_EDGES (0, around l, 2^252,
+    2^256 and 2^512) and seeded strings, one launch, against its plain
+    version (tolerance 0)."""
+    from bulletproof_gadgets_tpu_torch.ops import strobe_device as sd
+    ch = torch.tensor([list(c) for c in _chip_smoke().challenge_strings(
+        40, 40)], dtype=torch.uint8)
+    before = dict(ms.LAUNCHES)
+    got = sd.challenge_rows(ch.to(cuda))
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["challenge_rows"] == before["challenge_rows"] + 1
+    assert ms.LAUNCHES["transcript_round"] == before["transcript_round"]
+    assert torch.equal(got.cpu(), sd.challenge_rows_plain(ch))
+
+
 def test_device_ipa_equals_cpu(cuda):
     """ipa_fused.create on a 64-gens table with one fold, on the card and
     on the CPU: equal L/R bytes, a0, b0 and transcript state."""

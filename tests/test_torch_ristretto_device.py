@@ -175,7 +175,8 @@ def _header_words(src, fn):
 def test_cuda_sources_match_plain_constants():
     """The constants csrc/field_l.cuh, csrc/ristretto.cu and
     csrc/field32.cuh hard-code: l, -l^-1 mod 2^32, 2^512, 2^768, 2^256
-    and 2^260 mod l; sqrt(-1), 1/sqrt(-1 - d), 2d; l - 2's windows."""
+    and 2^260 mod l; l's signed-30 limbs and l^-1 mod 2^30 (the divsteps
+    inversion); sqrt(-1), 1/sqrt(-1 - d), 2d."""
     fl_src = open(os.path.join(CSRC, "field_l.cuh")).read()
     for fn, v in (("fl8_l", L), ("fl8_r2", (1 << 512) % L),
                   ("fl8_r3", (1 << 768) % L),
@@ -184,8 +185,13 @@ def test_cuda_sources_match_plain_constants():
         assert _header_words(fl_src, fn) == _words(v), fn
     lp = int(re.search(r"kFlLPrime = (0x[0-9a-f]+)u", fl_src).group(1), 16)
     assert lp == (-pow(L, -1, 1 << 32)) % (1 << 32)
-    nib = re.search(r"nib\[63\] = \{([^}]*)\}", fl_src).group(1)
-    assert [int(v) for v in nib.split(",")] == rd._L2_NIBS
+    limbs = re.search(r"s30_l\(\) \{\s*s30 r = \{\{([^}]*)\}\};",
+                      fl_src).group(1)
+    assert [int(v, 0) for v in limbs.split(",")] == [
+        (L >> (30 * i)) & ((1 << 30) - 1) for i in range(8)] + [L >> 240]
+    inv30 = int(re.search(r"kFlLInv30 = (0x[0-9a-f]+)u", fl_src).group(1),
+                16)
+    assert inv30 == pow(L, -1, 1 << 30)
     r_src = open(os.path.join(CSRC, "ristretto.cu")).read()
     assert _header_words(r_src, "fe8_sqrt_m1") == _words(SQRT_M1)
     assert _header_words(r_src, "fe8_invsqrt_a_minus_d") == \
