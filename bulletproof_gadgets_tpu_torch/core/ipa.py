@@ -79,8 +79,9 @@ class InnerProductProof:
         once, right after the domain separator, with the factors and
         vectors as ints or device rows, and expects (L_vec, R_vec, a0, b0)
         back (lang/batch answers a group of them with one
-        ops/ipa_fused.create_batched); on any other table the host loop
-        runs without yielding."""
+        ops/ipa_fused.create_batched); on a sharded device table (one with a
+        `mesh`, parallel/sharded_serial) it runs parallel/sharded_ipa.create
+        without yielding, as on any other table the host loop does."""
         n_full = len(G)
         assert n_full == len(H) == len(a) == len(b)
         assert n_full == len(G_factors) == len(H_factors)
@@ -95,9 +96,16 @@ class InnerProductProof:
             # (ops/prover_device) go in as they are
             ints = lambda v: ([s.v % _q for s in v]          # noqa: E731
                               if isinstance(v, list) else v)
-            L_vec, R_vec, a0, b0 = yield (
-                "fused_ipa", table, (transcript, w.v % _q, ints(G_factors),
-                                     ints(H_factors), ints(a), ints(b)))
+            args = (transcript, w.v % _q, ints(G_factors), ints(H_factors),
+                    ints(a), ints(b))
+            if getattr(table, "mesh", None) is not None:
+                # a sharded table: its argument runs here, on every rank
+                # (ops/ipa_fused reads table.src as the whole table)
+                from ..parallel import sharded_ipa
+                L_vec, R_vec, a0, b0 = sharded_ipa.create(args[0], table,
+                                                          *args[1:])
+            else:
+                L_vec, R_vec, a0, b0 = yield ("fused_ipa", table, args)
             return InnerProductProof(L_vec, R_vec, Scalar(a0), Scalar(b0))
 
         # Hot path: raw-int modular arithmetic (Scalar wrappers only at the

@@ -7,6 +7,10 @@ their bucket accumulation in `msm_layout` (ops/msm_serial.LAYOUTS; the
 JAX package's BPG_TPU_MSM_ROWS / BPG_TPU_MSM_RCHUNK switches, here an
 argument).  Tables are cached by content, device and layout, so the prover
 and the verifier of one circuit size share one device-resident source.
+With a mesh active (parallel/mesh.activate) whose shard axis has more than
+one rank, the factory builds parallel/sharded_serial.ShardedGeneratorTable
+on the mesh's device instead, cached per mesh too; a mesh of one shard
+keeps GeneratorTable.
 Nothing registers itself at import: the entry points (lang.prove.prove,
 lang.verify.verify, lang.batch.prove_batch) call `use(device)`, which
 registers CUDA unless a device was given or registered before, and keeps
@@ -15,6 +19,8 @@ the registered layout.
 import torch
 
 from ..core import msm as core_msm
+from ..parallel import mesh as mesh_mod
+from ..parallel.sharded_serial import ShardedGeneratorTable
 from . import msm_serial
 
 MIN_DEVICE_MSM = 192
@@ -36,10 +42,16 @@ def _table_key(G, H, B, B_blinding):
 
 
 def table_factory(G, H, B, B_blinding, device, layout):
-    key = _table_key(G, H, B, B_blinding) + (str(device), layout)
+    mesh = mesh_mod.active_mesh()
+    if mesh is not None and mesh.shape["shard"] == 1:
+        mesh = None                       # one shard: one device's table
+    key = _table_key(G, H, B, B_blinding) + (
+        str(device) if mesh is None else mesh, layout)
     t = _table_cache.get(key)
     if t is None:
-        t = msm_serial.GeneratorTable(G, H, B, B_blinding, device, layout)
+        t = (msm_serial.GeneratorTable(G, H, B, B_blinding, device, layout)
+             if mesh is None else
+             ShardedGeneratorTable(G, H, B, B_blinding, mesh, layout))
         if len(_table_cache) >= _TABLE_CACHE_MAX:
             _table_cache.pop(next(iter(_table_cache)))
         _table_cache[key] = t

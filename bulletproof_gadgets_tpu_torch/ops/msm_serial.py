@@ -99,7 +99,8 @@ Entries: `msm_many` recodes host scalar vectors; `msm_digits_t` takes
 signed digits already on the device (the device IPA and the verifier's
 table MSM) and returns the points as device columns, read back by the
 caller; `msm_digits_enc` (the commitments, the IPA rounds) returns their
-encodings, compressed on the device.
+encodings, compressed on the device; `window_sums_t` stops before K5
+(parallel/sharded_serial adds the ranks' window sums first).
 
 Not ported, because they serve the TPU: the tight plan and its overflow
 re-run (the bound here is the safe one, so nothing re-runs), the
@@ -801,6 +802,47 @@ def points_from_cols(cols, excess=None):
     return [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
 
 
+def window_sums_t(digits_t, src, n: int, point_chunk: int = None,
+                  slot_budget: int = None, layout: str = "rows",
+                  live_cols=None):
+    """msm_digits_t up to Horner: digits_t int8 [k*W, n] on src's device
+    over the rows src -> (int32 [4, NL, k*W] window sums, vector-major,
+    excess), with no read to the host.  Each point chunk runs schedule ->
+    K1 (K2 past the slot budget) -> K3 -> K4, and one K7 launch adds the
+    chunks' window sums; more than max_stack_k() vectors run in groups
+    whose window sums are concatenated.  The arguments and excess are
+    msm_digits_t's; parallel/sharded_serial combines these window sums
+    across ranks before its Horner."""
+    check_layout(layout)
+    k = digits_t.shape[0] // W
+    if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
+            or digits_t.device != src.device
+            or (live_cols is not None and len(live_cols) != n)):
+        raise ValueError(f"digits {tuple(digits_t.shape)} on "
+                         f"{digits_t.device} / source rows {src.shape[0]} on "
+                         f"{src.device}: expected [k*W, {n}] / {2 * n + 1}"
+                         " (live_cols: n entries)")
+    k_max = max_stack_k()
+    if k > k_max:
+        parts = [window_sums_t(digits_t[v * W:(v + k_max) * W], src, n,
+                               point_chunk, slot_budget, layout, live_cols)
+                 for v in range(0, k, k_max)]
+        return (torch.cat([ws for ws, _ in parts], dim=2),
+                torch.stack([e for _, e in parts]).max())
+    chunk = point_chunk or POINT_CHUNK
+    budget = SLOT_BUDGET if slot_budget is None else slot_budget
+    parts, excess = [], []
+    for lo in range(0, max(n, 1), chunk):
+        live_max = (None if live_cols is None else
+                    W * int(np.sum(live_cols[lo:lo + chunk], dtype=np.int64)))
+        s = schedule(digits_t[:, lo:lo + chunk], n, lo, live_max)
+        parts.append(window_sums(bucket_merge(
+            accumulate(src, s, budget, layout), s.offs, s.sub)))
+        excess.append(s.used - s.pool)
+    ws = parts[0] if len(parts) == 1 else point_sum(torch.stack(parts))
+    return ws, torch.stack(excess).max()
+
+
 def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
                  slot_budget: int = None, layout: str = "rows",
                  live_cols=None):
@@ -822,35 +864,14 @@ def msm_digits_t(digits_t, src, n: int, point_chunk: int = None,
     launch adds before Horner; a chunk of more than `slot_budget` (default
     SLOT_BUDGET; 0: no limit) T*P slots runs its rounds in chunks (K1,
     then K2; K8, then K9 under the cols layout).  `layout` is one of
-    LAYOUTS (`accumulate`); every layout gives the same limbs."""
-    check_layout(layout)
-    k = digits_t.shape[0] // W
-    if (digits_t.shape != (k * W, n) or src.shape[0] != 2 * n + 1
-            or digits_t.device != src.device
-            or (live_cols is not None and len(live_cols) != n)):
-        raise ValueError(f"digits {tuple(digits_t.shape)} on "
-                         f"{digits_t.device} / source rows {src.shape[0]} on "
-                         f"{src.device}: expected [k*W, {n}] / {2 * n + 1}"
-                         " (live_cols: n entries)")
-    k_max = max_stack_k()
-    if k > k_max:
-        parts = [msm_digits_t(digits_t[v * W:(v + k_max) * W], src, n,
-                              point_chunk, slot_budget, layout, live_cols)
-                 for v in range(0, k, k_max)]
-        return (torch.cat([c for c, _ in parts], dim=2),
-                torch.stack([e for _, e in parts]).max())
-    chunk = point_chunk or POINT_CHUNK
-    budget = SLOT_BUDGET if slot_budget is None else slot_budget
-    parts, excess = [], []
-    for lo in range(0, max(n, 1), chunk):
-        live_max = (None if live_cols is None else
-                    W * int(np.sum(live_cols[lo:lo + chunk], dtype=np.int64)))
-        s = schedule(digits_t[:, lo:lo + chunk], n, lo, live_max)
-        parts.append(window_sums(bucket_merge(
-            accumulate(src, s, budget, layout), s.offs, s.sub)))
-        excess.append(s.used - s.pool)
-    ws = parts[0] if len(parts) == 1 else point_sum(torch.stack(parts))
-    return horner(ws, k), torch.stack(excess).max()
+    LAYOUTS (`accumulate`); every layout gives the same limbs.  The window
+    sums are `window_sums_t`'s, then one K5 per group of vectors."""
+    ws, excess = window_sums_t(digits_t, src, n, point_chunk, slot_budget,
+                               layout, live_cols)
+    k, k_max = ws.shape[2] // W, max_stack_k()
+    return torch.cat([horner(ws[:, :, v * W:(v + k_max) * W].contiguous(),
+                             min(k_max, k - v))
+                      for v in range(0, k, k_max)], dim=2), excess
 
 
 def msm_digits_enc(digits_t, src, n: int, layout: str = "rows",

@@ -118,7 +118,24 @@ Phases (one line each; any failure raises and exits non-zero):
      own kernel inputs against the plain versions (tolerance 0): K1, K3,
      K4 and K5 on the first 2^17-point chunk of the commitments' and the
      verifier's table MSMs, K6 on its first fold (131,072 outputs), K7 on
-     its first chunk combine (D = 17); it fails if K2 launched there.
+     its first chunk combine (D = 17); it fails if K2 launched there;
+ 13. the sharded path (parallel/) over torch.distributed on the one card:
+     (a) two ranks over gloo (bulletproof_gadgets_tpu_torch.parallel.
+     distributed.run_ranks), both on cuda:0 with their window sums and
+     collectives through the host, a mesh active, example and merkle32
+     proved (first and warm, pinned seed) and verified through lang.prove
+     / lang.verify on every rank: proof and .coms equal the pins, verify
+     true, a tampered copy false, the launch counters reset before each
+     statement and read after it (K1, K3, K4, K5, K7 and the compression
+     must launch on every rank, K6 and the transcript round must not: the
+     sharded argument folds scalars and keeps the host transcript), K7 on
+     the two ranks' example commitment window sums against its plain
+     version, per-rank wall times beside phase 4's one-device ones; (b)
+     four ranks on example, the same checks; (c) NCCL at world size one:
+     the mesh collectives on CUDA tensors, a ShardedGeneratorTable at D = 1
+     whose example commitment encodings equal GeneratorTable's, K7 on its
+     gathered window sums against its plain version.  A rank that fails
+     fails the phase.
 Every phase prints its seconds.  Then the card's name and power limit, one
 JSON line of per-kernel results (with each kernel's bound: the larger of
 its products, PRODUCTS_PER_MUL a field mul (the two one-thread kernels:
@@ -126,8 +143,8 @@ their word products, a squaring at its distinct pairs), over the card's
 int32 multiply rate and its bytes over the memory rate, where the bucket
 accumulations count only the entries before each lane's stop;
 launches are the single-proof path's, the batch
-path's, the two layout runs', phase 11's requests and phase 12's stress
-run together), and the last line {"ok": true, "device": {...}}.
+path's, the two layout runs', phase 11's requests, phase 12's stress
+run and phase 13's ranks together), and the last line {"ok": true, "device": {...}}.
 """
 import hashlib
 import json
@@ -1536,6 +1553,206 @@ def stress_phase(pins, ms, m32_ns):
     return rec["launches"]
 
 
+# phase 13: (ranks, statements) of each gloo world on the one card
+MESH_WORLDS = ((2, ("example", "merkle32")), (4, ("example",)))
+# kernels every rank's prove + verify must launch, and those it must not
+# (the sharded argument folds scalars and keeps the host transcript)
+MESH_KERNELS = ("bucket_accumulate", "bucket_merge", "window_sums",
+                "horner", "point_sum", "ristretto_compress")
+MESH_IDLE = ("ladder_fold", "transcript_round")
+MESH_LIMIT = 600.0              # s per world, spawn to results
+
+
+def mesh_rank(rank, world, names, device, pins_path):
+    """Phase 13 (a) and (b), one rank of a gloo world on `device`: the mesh
+    active, each statement proved first and warm under the pinned seed and
+    verified through lang.prove / lang.verify (bytes equal to the pins,
+    verify true, a tampered copy false), the launch counters reset before
+    each statement and read after it; K7 on this world's first cross-rank
+    combine (the example's commitment MSM) against its plain version.
+    Raises on any difference: run_ranks fails the phase."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from bulletproof_gadgets_tpu_torch.lang.prove import prove
+    from bulletproof_gadgets_tpu_torch.lang.verify import verify
+    from bulletproof_gadgets_tpu_torch.ops import engine, msm_serial as ms
+    from bulletproof_gadgets_tpu_torch.parallel import mesh as mesh_mod
+    from bulletproof_gadgets_tpu_torch.utils import rng as blind_rng
+    with open(pins_path) as f:
+        pins = json.load(f)
+    engine.register(device)
+    mesh = mesh_mod.make_mesh(device=device)
+    mesh_mod.activate(mesh)
+    combines, point_sum = [], ms.point_sum
+
+    def record(ws):
+        if not combines:
+            combines.append(ws.clone())
+        return point_sum(ws)
+    ms.point_sum = record
+    out = {"statements": {}}
+    try:
+        for name in names:
+            st = pins["statements"][name]
+            for k in ms.LAUNCHES:
+                ms.LAUNCHES[k] = 0
+            times = []
+            for _ in range(2):                   # first, then warm
+                blind_rng.set_seed(pins["seed"])
+                coms = []
+                before = {k: list(v) for k, v in mesh.traffic.items()}
+                t0 = time.time()
+                try:
+                    proof, _ = prove(name, st["instance"], st["witness"],
+                                     st["gadgets"], coms)
+                finally:
+                    blind_rng.set_seed(None)
+                t_prove = time.time() - t0
+                traffic = {k: [v[0] - before.get(k, [0, 0])[0],
+                               v[1] - before.get(k, [0, 0])[1]]
+                           for k, v in mesh.traffic.items()}
+                coms = "".join(coms)
+                if (hashlib.sha256(proof).hexdigest() != st["proof_sha256"]
+                        or hashlib.sha256(coms.encode()).hexdigest()
+                        != st["coms_sha256"]):
+                    raise AssertionError(f"rank {rank} of {world}: {name} "
+                                         "proof or .coms differ from the "
+                                         "pin")
+                t0 = time.time()
+                if not verify(name, st["instance"], proof, coms,
+                              st["gadgets"]):
+                    raise AssertionError(f"rank {rank} of {world}: {name} "
+                                         "verify returned false")
+                times.append((t_prove, time.time() - t0))
+            bad = bytearray(proof)
+            bad[len(bad) // 2] ^= 1
+            if verify(name, st["instance"], bytes(bad), coms, st["gadgets"]):
+                raise AssertionError(f"rank {rank} of {world}: {name} "
+                                     "tampered proof verified")
+            launches = dict(ms.LAUNCHES)
+            missing = [k for k in MESH_KERNELS if launches[k] == 0]
+            stray = [k for k in MESH_IDLE if launches[k]]
+            if missing or stray:
+                raise AssertionError(f"rank {rank} of {world}: {name} "
+                                     f"kernels not launched {missing}, "
+                                     f"launched {stray}")
+            out["statements"][name] = {"times": times, "launches": launches,
+                                       "traffic": traffic}
+    finally:
+        ms.point_sum = point_sum
+    if rank == 0:
+        out["point_sum"] = check_point_sum(
+            ms, combines[0], f"{world} ranks' example commitment window "
+            "sums")
+    return out
+
+
+def nccl_rank(rank, world, device, rows, digits):
+    """Phase 13 (c), one rank of an NCCL world of one on `device`: the mesh
+    collectives on CUDA tensors; a ShardedGeneratorTable at D = 1 from the
+    example table's rows against GeneratorTable on the example's k = 3
+    commitment digits (the encodings equal); K7 on the rank's gathered
+    window sums against its plain version (tolerance 0)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    from bulletproof_gadgets_tpu_torch.ops import msm_serial as ms
+    from bulletproof_gadgets_tpu_torch.parallel import mesh as mesh_mod
+    from bulletproof_gadgets_tpu_torch.parallel.sharded_serial import \
+        ShardedGeneratorTable
+    mesh = mesh_mod.make_mesh(device=device)
+    if mesh.backend != "nccl" or mesh.shape["shard"] != 1:
+        raise AssertionError(f"NCCL world: backend {mesh.backend}, "
+                             f"{mesh.shape}")
+    x = torch.arange(12, dtype=torch.int64, device=device).view(3, 4)
+    checks = {"all_gather": mesh_mod.all_gather(mesh, x)[0],
+              "all_reduce sum": mesh_mod.all_reduce(mesh, x, "sum"),
+              "all_reduce max": mesh_mod.all_reduce(mesh, x, "max"),
+              "exchange": mesh_mod.exchange(mesh, x, [0])}
+    for label, got in checks.items():
+        if got.device != x.device or not torch.equal(got, x):
+            raise AssertionError(f"NCCL {label} on {got.device}: differs")
+    table = ShardedGeneratorTable.from_rows(rows, mesh)
+    one = ms.GeneratorTable.from_rows(rows, device)
+    dig = torch.from_numpy(digits).to(device)
+    got = table.msm_digits_enc_finish(table.msm_digits_enc_launch(dig))
+    want = one.msm_digits_enc_finish(one.msm_digits_enc_launch(dig))
+    if got != want:
+        raise AssertionError("NCCL D = 1: the sharded table's commitment "
+                             "encodings differ from GeneratorTable's")
+    ws, _ = ms.window_sums_t(table.local(dig), table.src,
+                             len(table.cols_host))
+    return {"collectives": sorted(checks),
+            "point_sum": check_point_sum(
+                ms, mesh_mod.all_gather(mesh, ws),
+                "NCCL D = 1 gathered example commitment window sums")}
+
+
+def mesh_phase(pins, direct, ex_call, smi):
+    """Phase 13: the sharded path over torch.distributed on the one card.
+    (a), (b): the gloo worlds of MESH_WORLDS, every rank on cuda:0, their
+    window sums and collectives through the host; (c) NCCL at world size
+    one.  Returns the launches of (a) and (b), summed over ranks."""
+    from bulletproof_gadgets_tpu_torch.parallel import distributed
+    total = {}
+    # the ranks keep their generators apart from this process's cache
+    # (phase 12's 2^20 generators), in a git-ignored directory of the
+    # checkout
+    cache = os.environ.get("BPG_TORCH_CACHE")
+    os.environ["BPG_TORCH_CACHE"] = os.path.join(
+        ROOT, "bulletproof_gadgets_tpu_torch", "_cache", "ranks")
+    store = os.path.join(os.environ["BPG_TORCH_CACHE"],
+                         f"rendezvous-{os.getpid()}")
+    os.makedirs(os.environ["BPG_TORCH_CACHE"], exist_ok=True)
+    try:
+        for world, names in MESH_WORLDS:
+            t0 = time.time()
+            ranks = distributed.run_ranks(
+                mesh_rank, world, f"{store}-{world}",
+                args=(names, "cuda:0", PINS), backend="gloo",
+                timeout=MESH_LIMIT)
+            for name in names:
+                for r, res in enumerate(ranks):
+                    (p1, v1), (p2, v2) = res["statements"][name]["times"]
+                    say(f"mesh {world} ranks over gloo on one card, rank {r}:"
+                        f" {name} proof and .coms equal the pins, verify "
+                        f"true, tampered false; prove first {p1:.2f} s warm "
+                        f"{p2:.2f} s, verify first {v1:.2f} s warm {v2:.2f} "
+                        f"s (one device, phase 4, warm: prove "
+                        f"{direct[name][0]:.2f} s, verify "
+                        f"{direct[name][1]:.2f} s; the ranks share the "
+                        f"card), {smi}")
+                    for k, v in res["statements"][name]["launches"].items():
+                        total[k] = total.get(k, 0) + v
+                say(f"mesh {world} ranks, {name}: launches per rank "
+                    f"{[res['statements'][name]['launches'] for res in ranks]}"
+                    "; collectives of rank 0's warm prove [calls, bytes it "
+                    f"put in]: {ranks[0]['statements'][name]['traffic']}")
+            err, k_ms, p_ms, b_ms, b_by = ranks[0]["point_sum"]
+            say(f"mesh {world} ranks: K7 on the ranks' example commitment "
+                f"window sums equal to plain (max abs err {err}), {k_ms:.4f}"
+                f" ms vs plain {p_ms:.3f} ms, bound {b_ms:.4g} ms ({b_by}); "
+                f"{time.time() - t0:.1f} s from spawn to results; {smi}")
+        t0 = time.time()
+        digits, src, _ = ex_call
+        (res,) = distributed.run_ranks(
+            nccl_rank, 1, f"{store}-nccl",
+            args=("cuda:0", src.cpu().numpy(), digits.cpu().numpy()),
+            backend="nccl", timeout=MESH_LIMIT)
+        err, k_ms, p_ms, _, _ = res["point_sum"]
+        say(f"mesh NCCL world of one on cuda:0: {', '.join(res['collectives'])}"
+            " equal on CUDA tensors; a ShardedGeneratorTable at D = 1 gives "
+            "GeneratorTable's example commitment encodings; K7 on its "
+            f"gathered window sums equal to plain (max abs err {err}), "
+            f"{k_ms:.4f} ms vs plain {p_ms:.3f} ms; {time.time() - t0:.1f} s;"
+            f" {smi}")
+    finally:
+        if cache is None:
+            del os.environ["BPG_TORCH_CACHE"]
+        else:
+            os.environ["BPG_TORCH_CACHE"] = cache
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1885,6 +2102,10 @@ def main() -> int:
     stress_launches = stress_phase(pins, ms, m32_ns)
     phase_done(12)
 
+    # 13. the sharded path: gloo ranks on the one card, NCCL at world size 1
+    mesh_launches = mesh_phase(pins, direct, ex_call, smi)
+    phase_done(13)
+
     say(f"all phases in {time.time() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"kernels": [
@@ -1892,7 +2113,8 @@ def main() -> int:
          "replaces": replaces,
          "launches": launches[name] + batch_launches[name]
          + sum(run[name] for run in layout_launches)
-         + surface_launches[name] + stress_launches.get(name, 0),
+         + surface_launches[name] + stress_launches.get(name, 0)
+         + mesh_launches.get(name, 0),
          "max_abs_err": results[name][0], "ms": results[name][1],
          "plain_ms": results[name][2], "bound_ms": results[name][3],
          "bound_by": results[name][4], "library_ms": None}
