@@ -1,0 +1,9 @@
+"""Wall seconds inside ops.ipa_fused.create_batched,
+summed over the traced window, per proof."""
+
+
+def read(ctx):
+    spans = ctx.spans.get("ipa")
+    if not spans or not ctx.work:
+        return None
+    return sum(e - s for s, e in spans) / 1e9 / ctx.work
