@@ -4,7 +4,8 @@ the `.gadgets` mini-language), for NVIDIA Hopper.
 
 Layers (the JAX package's layout and module names):
   utils/   Keccak/STROBE/Merlin transcript (the plain version of capi's),
-           conversions, RNG, profiling (torch.profiler traces, phase timers)
+           conversions, RNG, profiling (the span and counter recorder,
+           torch.profiler traces)
   core/    scalars, Ristretto group, generators, R1CS prover/verifier, IPA,
            proof serialization, op-recording constraint system
   ops/     F_p and F_l limb arithmetic and curve ops (plain torch), the

@@ -25,6 +25,7 @@ import pickle
 import threading
 
 from .ristretto import RistrettoPoint, RISTRETTO_BASEPOINT
+from ..utils import profiling
 
 # inside the package (git ignores it), so a run writes nothing outside its
 # checkout
@@ -92,12 +93,13 @@ class PedersenGens:
 
     def commit(self, value, blinding) -> RistrettoPoint:
         """value, blinding: core.scalar.Scalar"""
-        if self._comb_B is None:
-            self._comb_B = _CombTable(self.B)
-            self._comb_Bb = _CombTable(self.B_blinding)
         from .scalar import L as _L
-        return (self._comb_B.mul(value.v % _L)
-                + self._comb_Bb.mul(blinding.v % _L))
+        with profiling.span("curve.commit"):
+            if self._comb_B is None:
+                self._comb_B = _CombTable(self.B)
+                self._comb_Bb = _CombTable(self.B_blinding)
+            return (self._comb_B.mul(value.v % _L)
+                    + self._comb_Bb.mul(blinding.v % _L))
 
 
 class _GeneratorsChain:
@@ -167,17 +169,18 @@ class BulletproofGens:
         with cls._lock:
             if cls._cached is not None and cls._cached[0] >= capacity:
                 return
-            loaded = cls._disk_load(capacity)
-            if loaded is not None:
-                cls._cached = loaded
-                return
-            g_chain = _GeneratorsChain(b"G" + (0).to_bytes(4, "little"))
-            h_chain = _GeneratorsChain(b"H" + (0).to_bytes(4, "little"))
-            G = g_chain.take(capacity, device)
-            H = h_chain.take(capacity, device)
-            cls._cached = (capacity, G, H)
-            if capacity >= 256:
-                cls._disk_store(capacity, G, H)
+            with profiling.span("gens.map"):     # a disk load or the map
+                loaded = cls._disk_load(capacity)
+                if loaded is not None:
+                    cls._cached = loaded
+                    return
+                g_chain = _GeneratorsChain(b"G" + (0).to_bytes(4, "little"))
+                h_chain = _GeneratorsChain(b"H" + (0).to_bytes(4, "little"))
+                G = g_chain.take(capacity, device)
+                H = h_chain.take(capacity, device)
+                cls._cached = (capacity, G, H)
+                if capacity >= 256:
+                    cls._disk_store(capacity, G, H)
 
     def G(self, n: int):
         assert n <= self.gens_capacity

@@ -39,7 +39,7 @@ from .transcript import (r1cs_domain_sep, r1cs_1phase_domain_sep,
 from .proof import R1CSProof
 from .ipa import InnerProductProof
 from .msm import msm, generator_table
-from ..utils import rng
+from ..utils import profiling, rng
 
 
 class R1CSError(Exception):
@@ -204,7 +204,8 @@ class Prover:
     def prove(self, bp_gens) -> R1CSProof:
         """Single proof: drives `prove_gen`, answering each request with
         the table itself (`table.msm_digits_enc_launch` / `_finish`), one
-        readback, or ops/ipa_fused.create."""
+        readback, or ops/ipa_fused.create_batched of one proof (`create`),
+        under the span names lang.batch's lockstep gives its answers."""
         gen = self.prove_gen(bp_gens)
         resp = None
         while True:
@@ -213,14 +214,18 @@ class Prover:
             except StopIteration as stop:
                 return stop.value
             if kind == "msm_enc":
-                resp = table.msm_digits_enc_finish(
-                    table.msm_digits_enc_launch(arg))
+                with profiling.span("lockstep.msm_launch"):
+                    launch = table.msm_digits_enc_launch(arg)
+                with profiling.span("lockstep.msm_finish"):
+                    resp = table.msm_digits_enc_finish(launch)
             elif kind == "fused_ipa":
                 from ..ops import ipa_fused
-                resp = ipa_fused.create(arg[0], table, *arg[1:])
+                resp = ipa_fused.create_batched(
+                    [arg[0]], table, *([a] for a in arg[1:]))[0]
             else:
                 assert kind == "fetch"
-                resp = arg.cpu()
+                with profiling.span("lockstep.fetch"):
+                    resp = profiling.readback(arg)
 
     def prove_gen(self, bp_gens):
         """Generator form of prove().  On a device table (`supports_digits`)
@@ -237,7 +242,13 @@ class Prover:
         and s_L, s_R, and before the draws of the t blindings, as in the
         JAX package, so lang.batch's lockstep draws every proof's
         commitment blindings first.  On a host table it yields nothing:
-        every table MSM is one `table.msm_many` over the stacked vectors."""
+        every table MSM is one `table.msm_many` over the stacked vectors.
+
+        Its stretches between the requests are the spans r1cs.commit,
+        r1cs.poly, r1cs.t_commit (with the argument's host work up to its
+        request) and r1cs.finish, each closed while the generator waits, so
+        no suspended time counts in them."""
+        seg = profiling.begin("r1cs.commit")
         t = self.transcript
         t.append_u64(b"m", len(self.v))
 
@@ -272,10 +283,10 @@ class Prover:
                 [[s.v for s in vec] for vec in
                  (self.a_L, self.a_R, self.a_O, s_L1, s_R1)], dev)
             # the three points compress on the device: 96 bytes come back
-            A_I1, A_O1, S1 = yield ("msm_enc", table,
-                                    prover_device.commitment_digits(
-                                        *wit, (i_blinding1.v, o_blinding1.v,
-                                               s_blinding1.v), padded_n1))
+            A_I1, A_O1, S1 = yield ("msm_enc", table, profiling.end(
+                seg, prover_device.commitment_digits(
+                    *wit, (i_blinding1.v, o_blinding1.v, s_blinding1.v),
+                    padded_n1)))
         else:
             zpad = [0] * (padded_n1 - n1)
             zeros_N = [0] * padded_n1
@@ -289,6 +300,8 @@ class Prover:
             A_I1 = p_AI.compress()
             A_O1 = p_AO.compress()
             S1 = p_S.compress()
+            profiling.end(seg)
+        seg = profiling.begin("r1cs.poly")
 
         append_point(t, b"A_I1", A_I1)
         append_point(t, b"A_O1", A_O1)
@@ -318,21 +331,24 @@ class Prover:
         y_inv = y.invert()
 
         flat = None
-        if device:
-            from ..ops.flatten import flatten
-            flat = flatten(self.constraints, n, len(self.v), z.v % L_MOD,
-                           False, dev)
-        if flat is not None:
-            wL, wR, wO, wV = flat.wL, flat.wR, flat.wO, flat.wV
-        else:
-            wL, wR, wO, wV = self._flattened_constraints(z)
+        with profiling.span("r1cs.flatten"):
+            if device:
+                from ..ops.flatten import flatten
+                flat = flatten(self.constraints, n, len(self.v), z.v % L_MOD,
+                               False, dev)
+            if flat is not None:
+                wL, wR, wO, wV = flat.wL, flat.wR, flat.wO, flat.wV
+            else:
+                wL, wR, wO, wV = self._flattened_constraints(z)
 
         if device:
             # the O(n) polynomial vectors on the device; l/r stay there
             pv = prover_device.ProverVectors(
                 *wit, wL, wR, wO, y.v % L_MOD, y_inv.v % L_MOD, padded_n,
                 dev)
-            t_parts = yield ("fetch", None, pv.t_poly_device())
+            t_parts = yield ("fetch", None,
+                             profiling.end(seg, pv.t_poly_device()))
+            seg = profiling.begin("r1cs.t_commit")
             t_poly = _Poly6(*(Scalar(v) for v in pv.t_poly_from(t_parts)))
         else:
             exp_y_vec = exp_iter(y, max(n, 1))
@@ -356,6 +372,8 @@ class Prover:
                 _inner(l2, r3),
                 _inner(l3, r3),
             )
+            profiling.end(seg)
+            seg = profiling.begin("r1cs.t_commit")
 
         t_1_blinding = rng.random_scalar()
         t_3_blinding = rng.random_scalar()
@@ -407,7 +425,8 @@ class Prover:
         append_scalar(t, b"e_blinding", e_blinding)
 
         w = challenge_scalar(t, b"w")
-        Q = self.pc_gens.B.scalar_mul(w.v)
+        with profiling.span("curve.commit"):
+            Q = self.pc_gens.B.scalar_mul(w.v)
 
         if device:
             G_factors, H_factors = pv.factors(n1, u.v % L_MOD)
@@ -417,14 +436,18 @@ class Prover:
                          for i in range(padded_n)]
 
         assert padded_n == padded_n1
-        ipp = yield from InnerProductProof.create_gen(
-            t, Q, G_factors, H_factors,
-            list(bp_gens.G(padded_n)), list(bp_gens.H(padded_n)),
-            l_vec, r_vec, table=table, w=w)
+        ipp, seg = yield from profiling.yield_from(
+            InnerProductProof.create_gen(
+                t, Q, G_factors, H_factors,
+                list(bp_gens.G(padded_n)), list(bp_gens.H(padded_n)),
+                l_vec, r_vec, table=table, w=w),
+            seg, "r1cs.finish")
 
-        return R1CSProof(A_I1, A_O1, S1, A_I2, A_O2, S2,
-                         T_1, T_3, T_4, T_5, T_6,
-                         t_x, t_x_blinding, e_blinding, ipp)
+        proof = R1CSProof(A_I1, A_O1, S1, A_I2, A_O2, S2,
+                          T_1, T_3, T_4, T_5, T_6,
+                          t_x, t_x_blinding, e_blinding, ipp)
+        profiling.end(seg)
+        return proof
 
 
 class Verifier:

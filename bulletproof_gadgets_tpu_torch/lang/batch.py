@@ -30,6 +30,7 @@ import torch
 
 from ..models import mimc
 from ..ops import engine
+from ..utils import profiling
 from .assignments import parse_assignment
 from .prove import prove_prepared
 from .verify import verify
@@ -46,13 +47,14 @@ def warm_image_cache(byte_values, device) -> int:
     Returns the number of images computed."""
     from ..ops.mimc_kernels import mimc_hash_batch
 
-    todo = [b for b in dict.fromkeys(byte_values)
-            if b not in mimc._image_cache]
-    if not todo:
-        return 0
-    for data, image in zip(todo, mimc_hash_batch(todo, device)):
-        mimc._image_cache[data] = image
-    return len(todo)
+    with profiling.span("batch.image_hash"):
+        todo = [b for b in dict.fromkeys(byte_values)
+                if b not in mimc._image_cache]
+        if not todo:
+            return 0
+        for data, image in zip(todo, mimc_hash_batch(todo, device)):
+            mimc._image_cache[data] = image
+        return len(todo)
 
 
 def _max_launch_k():
@@ -79,9 +81,12 @@ def _drive_lockstep(gens, max_k=None):
     """Run prover generators in lockstep, answering each step's requests
     together: same-table "msm_enc" requests as one encoded MSM per <= max_k
     (default max_stack_k()) stacked vectors, all launched before the first
-    readback (each reads its encodings and its pool check in one), "fetch" requests as one transfer per shape, "fused_ipa"
-    requests as one create_batched per table.  A generator that yields
-    nothing (a host table) finishes at its first step."""
+    readback (each reads its encodings and its pool check in one), "fetch"
+    requests as one transfer per shape, "fused_ipa" requests as one
+    create_batched per table.  A generator that yields nothing (a host
+    table) finishes at its first step.  Spans: lockstep.msm_launch /
+    msm_finish / fetch around the answers (the generators' own stretches
+    are core/r1cs's r1cs.* spans, the arguments ops/ipa_fused's)."""
     live = dict(enumerate(gens))
     resps = {i: None for i in live}
     results = {}
@@ -102,20 +107,28 @@ def _drive_lockstep(gens, max_k=None):
             else:
                 assert kind == "fused_ipa"
                 ipas.setdefault(id(table), (table, []))[1].append((i, arg))
-        pending = [(table, group, table.msm_digits_enc_launch(
-            torch.cat([d for _, d, _ in group])))
-            for table, items in msms.values()
-            for group in _groups(items, k_cap)]
-        for table, group, launch in pending:
-            encs = table.msm_digits_enc_finish(launch)
-            off = 0
-            for i, _, k in group:
-                resps[i] = encs[off:off + k]
-                off += k
-        for items in fetches.values():
-            rows = torch.stack([a for _, a in items]).cpu()
-            for (i, _), row in zip(items, rows):
-                resps[i] = row
+        if msms:
+            with profiling.span("lockstep.msm_launch"):
+                pending = [(table, group, table.msm_digits_enc_launch(
+                    torch.cat([d for _, d, _ in group])))
+                    for table, items in msms.values()
+                    for group in _groups(items, k_cap)]
+            with profiling.span("lockstep.msm_finish"):
+                for table, group, launch in pending:
+                    encs = table.msm_digits_enc_finish(launch)
+                    off = 0
+                    for i, _, k in group:
+                        resps[i] = encs[off:off + k]
+                        off += k
+            # the launches' device buffers go before the next step's work
+            del pending
+        if fetches:
+            with profiling.span("lockstep.fetch"):
+                for items in fetches.values():
+                    rows = profiling.readback(
+                        torch.stack([a for _, a in items]))
+                    for (i, _), row in zip(items, rows):
+                        resps[i] = row
         if ipas:
             from ..ops import ipa_fused
             for table, items in ipas.values():
@@ -134,24 +147,28 @@ def prove_batch(name, instance, witnesses, gadgets, device=None,
     CUDA, which raises where CUDA is missing.  `max_k` caps the stacked
     vectors per commitment launch below max_stack_k() (max_k=3: one
     proof's commitments per launch)."""
-    dev = engine.use(device)
-    if any(op in gadgets for op in ("HASH", "MERKLE", "SET_MEMBER")):
-        values = [v for w in witnesses for v in _witness_values(w)]
-        values += list(_witness_values(instance))
-        warm_image_cache(values, dev)
+    with profiling.span("request"):
+        dev = engine.use(device)
+        if any(op in gadgets for op in ("HASH", "MERKLE", "SET_MEMBER")):
+            values = [v for w in witnesses for v in _witness_values(w)]
+            values += list(_witness_values(instance))
+            warm_image_cache(values, dev)
 
-    prepared = []
-    for w in witnesses:
-        coms = []
-        prover, bp_gens, nc = prove_prepared(name, instance, w, gadgets,
-                                             coms, dev)
-        prepared.append((prover, bp_gens, nc, coms))
+        prepared = []
+        for w in witnesses:
+            coms = []
+            with profiling.span("batch.prepare"):
+                prover, bp_gens, nc = prove_prepared(name, instance, w,
+                                                     gadgets, coms, dev)
+            prepared.append((prover, bp_gens, nc, coms))
 
-    proofs = _drive_lockstep(
-        [prover.prove_gen(bp_gens) for prover, bp_gens, _, _ in prepared],
-        max_k)
-    return [(proof.to_bytes(), nc, "".join(coms))
-            for proof, (_, _, nc, coms) in zip(proofs, prepared)]
+        with profiling.span("batch.lockstep"):
+            proofs = _drive_lockstep(
+                [prover.prove_gen(bp_gens)
+                 for prover, bp_gens, _, _ in prepared], max_k)
+        with profiling.span("batch.serialize"):
+            return [(proof.to_bytes(), nc, "".join(coms))
+                    for proof, (_, _, nc, coms) in zip(proofs, prepared)]
 
 
 def verify_batch(name, instance, proofs_and_coms, gadgets, device=None):

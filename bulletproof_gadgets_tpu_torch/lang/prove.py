@@ -14,7 +14,7 @@ from ..core.lc import to_lc
 from ..core.scalar import Scalar
 from ..utils.merlin import new_transcript as Transcript
 from ..utils.conversions import be_to_scalar, be_to_scalars, scalar_to_be
-from ..utils import rng
+from ..utils import profiling, rng
 from ..ops import engine
 from ..models.bounds_check import BoundsCheck
 from ..models.equality import Equality
@@ -68,44 +68,52 @@ def prove_prepared(name: str, instance: str, witness: str, gadgets: str,
     entirely — setup/commit side effects still run live, assignments are
     evaluated from the cached multiplier programs (lang/template).
     Generators not cached yet are mapped on `device`, as in prove()."""
-    transcript = Transcript(name.encode())
-    pc_gens = PedersenGens.default()
-    prover = Prover(pc_gens, transcript)
+    with profiling.span("prepare.witness"):
+        transcript = Transcript(name.encode())
+        pc_gens = PedersenGens.default()
+        prover = Prover(pc_gens, transcript)
 
-    assignments = Assignments()
-    assignments.parse_instance(instance)
-    assignments.parse_witness(witness, prover, coms_out)
+        assignments = Assignments()
+        assignments.parse_instance(instance)
+        assignments.parse_witness(witness, prover, coms_out)
 
-    cache_key = None
-    tmpl = None
-    if template.enabled():
-        cache_key = (gadgets, instance, template.witness_shape(witness))
-        tmpl = template.prover_cache.get(cache_key)
+        cache_key = None
+        tmpl = None
+        if template.enabled():
+            cache_key = (gadgets, instance, template.witness_shape(witness))
+            tmpl = template.prover_cache.get(cache_key)
+            if tmpl is None:
+                profiling.count("template.miss")
 
-    recorder = RecordingCS(prover_mode=True)
-    if tmpl is not None:
-        recorder.skip_assembly = True
+    with profiling.span("prepare.assemble"):
+        recorder = RecordingCS(prover_mode=True)
+        if tmpl is not None:
+            recorder.skip_assembly = True
 
-    lines = _peekable(enumerate(gadgets.splitlines()))
-    while lines.peek() is not None:
-        index, line = lines.next()
-        local_initialization = [list(recorder.buffer())]
-        _parse_conjunction(lines, line, assignments, prover, recorder,
-                           coms_out, local_initialization)
-        _parse_gadget(line, assignments, prover, recorder, index, coms_out)
+        lines = _peekable(enumerate(gadgets.splitlines()))
+        while lines.peek() is not None:
+            index, line = lines.next()
+            local_initialization = [list(recorder.buffer())]
+            _parse_conjunction(lines, line, assignments, prover, recorder,
+                               coms_out, local_initialization)
+            _parse_gadget(line, assignments, prover, recorder, index,
+                          coms_out)
 
-    if tmpl is not None:
-        tmpl.fill_assignments(prover)
-    else:
-        recorder.replay_into(prover)
-        if cache_key is not None:
-            built = template.build_prover_template(recorder, prover)
-            if built is not None:
-                template.prover_cache.put(cache_key, built)
+        if tmpl is not None:
+            with profiling.span("template.fill"):
+                tmpl.fill_assignments(prover)
+        else:
+            recorder.replay_into(prover)
+            if cache_key is not None:
+                with profiling.span("template.build"):
+                    built = template.build_prover_template(recorder, prover)
+                if built is not None:
+                    template.prover_cache.put(cache_key, built)
 
     num_constraints = prover.num_constraints()
-    bp_gens = BulletproofGens(round_pow2(prover.get_num_multiplications()), 1,
-                              device=engine.use(device))
+    with profiling.span("prepare.gens"):
+        bp_gens = BulletproofGens(round_pow2(
+            prover.get_num_multiplications()), 1, device=engine.use(device))
     return prover, bp_gens, num_constraints
 
 
@@ -117,11 +125,12 @@ def prove(name: str, instance: str, witness: str, gadgets: str,
     num_constraints).  The device work runs on `device` ("cuda", "cpu",
     ...), else on the device registered before (ops/engine), else on CUDA,
     which raises where CUDA is missing."""
-    device = engine.use(device)
-    prover, bp_gens, num_constraints = prove_prepared(
-        name, instance, witness, gadgets, coms_out, device)
-    proof = prover.prove(bp_gens)
-    return proof.to_bytes(), num_constraints
+    with profiling.span("request"):
+        device = engine.use(device)
+        prover, bp_gens, num_constraints = prove_prepared(
+            name, instance, witness, gadgets, coms_out, device)
+        proof = prover.prove(bp_gens)
+        return proof.to_bytes(), num_constraints
 
 
 class _peekable:

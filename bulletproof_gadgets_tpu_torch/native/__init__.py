@@ -23,6 +23,8 @@ import subprocess
 
 import torch
 
+from ..utils import profiling
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(os.path.dirname(_HERE), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
@@ -89,10 +91,18 @@ def library_path() -> str:
 def build() -> str:
     """Compile the kernels (if this source state has no library yet): one
     nvcc per source, all started together, then one link."""
-    global BUILD_LOG
     path = library_path()
     if os.path.exists(path):
         return path
+    with profiling.span("native.build"):
+        _compile(path)
+    profiling.count("native.builds")
+    return path
+
+
+def _compile(path):
+    """nvcc: one process per source, then the link, into `path`."""
+    global BUILD_LOG
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     nvcc = _nvcc()
@@ -120,18 +130,18 @@ def build() -> str:
     if failed:
         raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
     os.replace(tmp, path)
-    return path
 
 
 def load():
     """The kernel library (built on first use)."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
-        for name, argtypes in _FUNCS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        with profiling.span("native.load"):
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _FUNCS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

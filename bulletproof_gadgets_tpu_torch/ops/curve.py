@@ -128,8 +128,7 @@ def canonical_affine(p):
     """Host check helper: canonical (x, y) ints of each lane, for comparing
     points whose projective representations differ."""
     from ..core.ristretto import P
-    xs, ys, zs = (fp.limbs_to_ints(c.reshape(fp.NL, -1).cpu().numpy())
-                  for c in p[:3])
+    xs, ys, zs = (fp.limbs_to_ints(c.reshape(fp.NL, -1)) for c in p[:3])
     out = []
     for x, y, z in zip(xs, ys, zs):
         zi = pow(z, P - 2, P)

@@ -22,6 +22,7 @@ from ..core import msm as core_msm
 from ..parallel import mesh as mesh_mod
 from ..parallel.sharded_serial import ShardedGeneratorTable
 from . import msm_serial
+from ..utils import profiling
 
 MIN_DEVICE_MSM = 192
 
@@ -49,9 +50,12 @@ def table_factory(G, H, B, B_blinding, device, layout):
         str(device) if mesh is None else mesh, layout)
     t = _table_cache.get(key)
     if t is None:
-        t = (msm_serial.GeneratorTable(G, H, B, B_blinding, device, layout)
-             if mesh is None else
-             ShardedGeneratorTable(G, H, B, B_blinding, mesh, layout))
+        profiling.count("engine.table_miss")
+        with profiling.span("engine.table_build"):
+            t = (msm_serial.GeneratorTable(G, H, B, B_blinding, device,
+                                           layout)
+                 if mesh is None else
+                 ShardedGeneratorTable(G, H, B, B_blinding, mesh, layout))
         if len(_table_cache) >= _TABLE_CACHE_MAX:
             _table_cache.pop(next(iter(_table_cache)))
         _table_cache[key] = t

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.scalar import L
+from ..utils import profiling
 
 B = 26
 NW = 10
@@ -126,8 +127,10 @@ def to_limbs(values, device="cpu") -> torch.Tensor:
 
 
 def limbs_to_ints(arr) -> list:
-    """Rows [..., NW] (any limb signs) -> canonical ints mod l."""
-    a = np.asarray(arr.cpu() if isinstance(arr, torch.Tensor) else arr)
+    """Rows [..., NW] (any limb signs) -> canonical ints mod l (a device
+    tensor is read back through profiling.readback)."""
+    a = np.asarray(profiling.readback(arr) if isinstance(arr, torch.Tensor)
+                   else arr)
     a = a.reshape(-1, NW).astype(object)
     return [sum(int(row[j]) << (B * j) for j in range(NW)) % L for row in a]
 

@@ -34,6 +34,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 NL = 10
 W = (26, 25) * 5                                  # limb widths
 S = (0, 26, 51, 77, 102, 128, 153, 179, 204, 230)  # limb shifts: ceil(25.5 i)
@@ -190,7 +192,10 @@ def ints_to_limbs(values) -> np.ndarray:
 
 
 def limbs_to_ints(arr) -> list:
-    """Limbs [NL, n] (any signs) -> canonical Python ints."""
+    """Limbs [NL, n] (any signs) -> canonical Python ints (a device
+    tensor is read back through profiling.readback)."""
+    if isinstance(arr, torch.Tensor):
+        arr = profiling.readback(arr)
     a = np.asarray(arr).reshape(NL, -1).astype(np.int64)
     cols = [[int(x) for x in a[i]] for i in range(NL)]
     return [sum(cols[i][j] << S[i] for i in range(NL)) % P

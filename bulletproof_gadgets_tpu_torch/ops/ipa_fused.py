@@ -47,6 +47,7 @@ import torch
 from . import fl, flvec, ipa_fold, msm_serial, strobe_device
 from .ipa_device import _fold, _scalars, round_masks
 from ..core.scalar import L
+from ..utils import profiling
 
 
 def _inputs(dev, a, b, G_factors, H_factors):
@@ -91,7 +92,8 @@ def _finish(transcripts, encs, excess, a_d, b_d, state, meta):
                       torch.stack(excess).reshape(-1),
                       torch.stack([a_d, b_d], 1).reshape(-1),
                       state.reshape(-1).to(torch.int64),
-                      meta.reshape(-1).to(torch.int64)]).cpu().numpy()
+                      meta.reshape(-1).to(torch.int64)])
+    flat = profiling.readback(flat).numpy()
     sizes = [rounds * nb * 64, rounds, 2 * nb * fl.NW, nb * 200, nb * 3]
     parts, off = [], 0
     for size in sizes:
@@ -165,12 +167,22 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
     b0)] per proof, each equal to what `create` gives it.  One proof, or a
     table of more than POINT_CHUNK points (its MSMs chunk, and `create`
     folds it), runs `create` per proof; groups of more than
-    max_stack_k() // 2 proofs split."""
+    max_stack_k() // 2 proofs split, each group a call of its own.
+
+    Spans: ipa.create_batched around the work of a call that does it (a
+    call that splits its group records none itself, so the work counts
+    once), with ipa.create per proof where it runs serially; counters
+    ipa.serial_proofs and ipa.batched_proofs."""
     args = list(zip(transcripts, w_scalars, G_factors_list, H_factors_list,
                     a_list, b_list))
     if len(args) == 1 or table.m > msm_serial.POINT_CHUNK:
-        return [create(t, table, w, gf, hf, av, bv)
-                for t, w, gf, hf, av, bv in args]
+        profiling.count("ipa.serial_proofs", len(args))
+        outs = []
+        with profiling.span("ipa.create_batched"):
+            for t, w, gf, hf, av, bv in args:
+                with profiling.span("ipa.create"):
+                    outs.append(create(t, table, w, gf, hf, av, bv))
+        return outs
     k_cap = max(1, msm_serial.max_stack_k() // 2)
     if len(args) > k_cap:
         outs = []
@@ -178,6 +190,8 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
             cols = list(zip(*args[i:i + k_cap]))
             outs += create_batched(cols[0], table, *cols[1:])
         return outs
+    profiling.count("ipa.batched_proofs", len(args))
+    span = profiling.begin("ipa.create_batched")
     dev = table.src.device
     n_full = len(a_list[0])
     assert table.N == n_full and n_full > 1
@@ -204,5 +218,7 @@ def create_batched(transcripts, table, w_scalars, G_factors_list,
         u = u_rows[:, :, None].unbind(1)                 # [B, 1, NW] each
     a_d, b_d, _, _ = _fold(a_d, b_d, gc, hc, *u, masks[-1]["ga"],
                            masks[-1]["hi"])
-    return _finish(transcripts, encs, excess, a_d[:, 0], b_d[:, 0], state,
+    outs = _finish(transcripts, encs, excess, a_d[:, 0], b_d[:, 0], state,
                    meta)
+    profiling.end(span)
+    return outs

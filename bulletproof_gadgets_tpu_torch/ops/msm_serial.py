@@ -115,6 +115,7 @@ import torch
 from . import curve, fp, ristretto_device
 from .msm import signed_digits
 from .. import native
+from ..utils import profiling
 from ..core.ristretto import RistrettoPoint, batch_normalize, P as _P, D as _D
 from ..core.scalar import L
 
@@ -794,7 +795,7 @@ def points_from_cols(cols, excess=None):
     flat = cols.reshape(-1).to(torch.int64)
     if excess is not None:
         flat = torch.cat([flat, excess.reshape(1)])
-    arr = flat.cpu().numpy()
+    arr = profiling.readback(flat).numpy()
     if excess is not None and arr[-1] > 0:
         raise_excess(int(arr[-1]))
     arr = arr[:cols.numel()].reshape(cols.shape)
@@ -953,8 +954,8 @@ class GeneratorTable:
         """-> k 32-byte encodings (one readback, which also reads the pool
         excess and raises if it is positive)."""
         enc, excess = pending
-        arr = torch.cat([enc.reshape(-1).to(torch.int64),
-                         excess.reshape(1)]).cpu().numpy()
+        arr = profiling.readback(torch.cat([enc.reshape(-1).to(torch.int64),
+                                            excess.reshape(1)])).numpy()
         if arr[-1] > 0:
             raise_excess(int(arr[-1]))
         return [bytes(row) for row in

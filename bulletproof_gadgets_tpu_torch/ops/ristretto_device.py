@@ -34,6 +34,7 @@ import torch
 
 from . import curve, fl, fp
 from .. import native
+from ..utils import profiling
 from ..core.ristretto import (D, D_MINUS_ONE_SQ, INVSQRT_A_MINUS_D,
                               ONE_MINUS_D_SQ, P, SQRT_AD_MINUS_ONE, SQRT_M1,
                               RistrettoPoint)
@@ -229,7 +230,7 @@ def points_from_uniform_bytes(stream, device, chunk: int = MAP_CHUNK):
             torch.from_numpy(raw[lo:lo + chunk].copy()).to(device))
         xs, ys, zs, ts = (
             [int.from_bytes(bytes(row), "little") for row in c]
-            for c in cols.cpu().numpy())
+            for c in profiling.readback(cols).numpy())
         out += [RistrettoPoint(*v) for v in zip(xs, ys, zs, ts)]
     return out
 

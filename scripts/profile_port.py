@@ -5,23 +5,12 @@
         [--root DIR] [--label NAME]
 
 Proves and verifies one pinned statement of tests/port_pins.json once cold,
-then --reps times warm (end-to-end wall times), then once warm with every
-stage timed on the host clock around a `torch.cuda.synchronize()`: the MSM
-stages (host digit recode, the device schedule, the idx rows, each
-kernel, the result readback; `msm_digits_t[m]` is one device-digit MSM over an m-point
-table, point-chunked past msm_serial.POINT_CHUNK points, its chunks
-combined by K7 `point_sum`), the device vectors (`flatten.flatten`, the
-commitment digits, `ProverVectors` build / t_poly / lr / factors,
-`verifier_device.table_digits_dev`), the host loops they replace
-(`Prover._flattened_constraints`, `Verifier._flattened_constraints`,
-`exp_iter`, `signed_digits`: absent from a device-path run), and the
-device IPA's (`ipa_fused.create` in all, its folds `ipa_fold.materialize`,
-its challenge folds `_fold` and digit builds `_scalars`).  Stages nest: an
-IPA's MSMs are inside `ipa_fused.create`, and the kernels inside their
-MSM; `stage_n` counts the calls.  Then once warm under torch.profiler
-for the device busy time:
-the union of the card's own activity intervals (kernels, copies, memsets),
-so no host operator is counted beside the device work it issued.
+then --reps times warm (end-to-end wall times), then once warm with the
+port's recorder on (utils/profiling: `span_s`, seconds by span name,
+inclusive and self, and the recorder's counters), then once warm under
+torch.profiler for the device busy time and the kernels' split: the union
+of the card's own activity intervals (kernels, copies, memsets), so no
+host operator is counted beside the device work it issued.
 Prints one JSON object (also written to --out).
 
 --ipa (a comma-separated list of pinned statements) times the inner-product
@@ -37,9 +26,6 @@ directory holding `bulletproof_gadgets_tpu_torch` (default: this checkout),
 so that two checkouts can be measured in turns on one card.
 """
 import argparse
-import functools
-import importlib
-import importlib.util
 import json
 import os
 import sys
@@ -200,11 +186,8 @@ def main(argv=None) -> int:
         return _emit(ipa_main(args, pins), args.out)
     from bulletproof_gadgets_tpu_torch.lang.prove import prove
     from bulletproof_gadgets_tpu_torch.lang.verify import verify
-    from bulletproof_gadgets_tpu_torch.core import r1cs
-    from bulletproof_gadgets_tpu_torch.ops import (
-        engine, flatten, ipa_fold, ipa_fused, msm_serial as ms,
-        prover_device, verifier_device)
-    from bulletproof_gadgets_tpu_torch.utils import rng
+    from bulletproof_gadgets_tpu_torch.ops import engine, msm_serial as ms
+    from bulletproof_gadgets_tpu_torch.utils import profiling, rng
 
     st = pins["statements"][args.statement]
     engine.register("cuda")
@@ -225,49 +208,14 @@ def main(argv=None) -> int:
     cold_total = time.perf_counter() - t0
     warm = [run() for _ in range(args.reps)]
 
-    stage_s, stage_n = {}, {}
-
-    def timed(name, fn):
-        @functools.wraps(fn)
-        def wrapper(*a, **kw):
-            key = name if name != "msm_digits_t" else f"{name}[{a[2]}]"
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            stage_s[key] = stage_s.get(key, 0.0) + time.perf_counter() - t0
-            stage_n[key] = stage_n.get(key, 0) + 1
-            return out
-        return wrapper
-
-    pv = prover_device.ProverVectors
-    stages = [(ms, n) for n in (
-        "signed_digits", "schedule", "idx_rows", "bucket_accumulate",
-        "bucket_accumulate_cont", "bucket_merge",
-        "window_sums", "point_sum", "horner", "points_from_cols",
-        "msm_many", "msm_digits_t")] + [
-        (flatten, "flatten"), (prover_device, "commitment_digits"),
-        (pv, "__init__"), (pv, "t_poly"), (pv, "lr"), (pv, "factors"),
-        (verifier_device, "table_digits_dev"),
-        (r1cs.Prover, "_flattened_constraints"),
-        (r1cs.Verifier, "_flattened_constraints"), (r1cs, "exp_iter"),
-        (ipa_fused, "create"), (ipa_fused, "_fold"), (ipa_fused, "_scalars"),
-        (ipa_fold, "materialize")]
-    for mod_name, n in (("ristretto_device", "ristretto_compress"),
-                        ("strobe_device", "transcript_round")):
-        if importlib.util.find_spec(
-                f"bulletproof_gadgets_tpu_torch.ops.{mod_name}"):
-            stages.append((importlib.import_module(
-                f"bulletproof_gadgets_tpu_torch.ops.{mod_name}"), n))
-    stages = [(mod, n) for mod, n in stages if hasattr(mod, n)]
-    saved = [(mod, n, getattr(mod, n)) for mod, n in stages]
-    for mod, n, fn in saved:
-        setattr(mod, n, timed(n if mod is ms else
-                              f"{mod.__name__.rsplit('.', 1)[-1]}.{n}", fn))
+    profiling.reset()
+    profiling.enable()
     launches0 = dict(ms.LAUNCHES)
-    prove_s, verify_s = run()
-    for mod, n, fn in saved:
-        setattr(mod, n, fn)
+    try:
+        prove_s, verify_s = run()
+    finally:
+        profiling.disable()
+    recorded = profiling.snapshot()
     launches = {k: ms.LAUNCHES[k] - launches0[k] for k in ms.LAUNCHES}
 
     from torch.profiler import ProfilerActivity, profile
@@ -290,8 +238,9 @@ def main(argv=None) -> int:
            "instrumented_prove_s": prove_s,
            "instrumented_verify_s": verify_s,
            "msms": launches["horner"], "launches": launches,
-           "point_chunk": ms.POINT_CHUNK, "stage_s": stage_s,
-           "stage_n": stage_n,
+           "point_chunk": ms.POINT_CHUNK,
+           "span_s": profiling.totals(recorded["spans"]),
+           "counters": recorded["counters"],
            "profiled_wall_s": wall, "device_busy_ms": busy_ms,
            "device_idle_share": 1 - busy_ms / 1e3 / wall,
            "top_device_ms": top}

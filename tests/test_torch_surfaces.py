@@ -3,7 +3,7 @@ pins (tests/port_pins.json, frozen by scripts/freeze_port_pins.py): the
 HTTP proof service (cli/serve), the C ABI (capi/bpg_ffi.c) loaded into
 this process and embedded in a C program, the JNI layer (capi/bpg_jni.c)
 through a JNIEnv made in Python, ffi.py's error mapping, and
-utils/profiling.
+utils/profiling's Chrome trace.
 
 Statements are inline pins: the 16-bit BOUND and the flat and nested OR
 conjunctions (the first port test of lang.prove._or_conjunction /
@@ -236,18 +236,34 @@ def test_ffi_verify_propagates_build_failures(port_on_cpu, seeded,
 
 
 def test_profiling(tmp_path):
-    with profiling.phase_timings() as timings:
-        with profiling.phase("a"):
-            torch.ones(64).sum()
-        with profiling.phase("a"):
-            pass
-        with profiling.phase("b"):
-            pass
-    assert set(timings) == {"a", "b"} and timings["a"] > 0
-    with profiling.phase("outside"):                # no collector: no-op
-        pass
-    with profiling.trace(str(tmp_path / "trace")):
-        torch.arange(1000).sum()
+    """trace() turns the recorder on for its block and writes the program's
+    spans into the profiler's Chrome trace on the profiler's clock: a span
+    around a torch op contains that op's interval, in the file and in the
+    profiler's own events; the block's counters are a counter event; the
+    recorder is off again after the block, and its spans are dropped."""
+    x = torch.ones(1 << 16)
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        assert profiling._on
+        with profiling.span("test.outer"):
+            x.mul(3.0)
+        profiling.count("test.counter", 3)
+        span = next(s for s in profiling.snapshot()["spans"]
+                    if s[0] == "test.outer")
+    assert not profiling._on
+    assert profiling.snapshot()["spans"] == []
     files = list((tmp_path / "trace").iterdir())
     assert len(files) == 1
-    assert "traceEvents" in json.loads(files[0].read_text())
+    events = json.loads(files[0].read_text())["traceEvents"]
+    outer = [e for e in events if e["name"] == "test.outer"]
+    ops = [e for e in events if e["name"] == "aten::mul"]
+    assert len(outer) == 1 and outer[0]["cat"] == "program" and ops
+    lo, hi = outer[0]["ts"], outer[0]["ts"] + outer[0]["dur"]
+    assert all(lo <= e["ts"] <= e["ts"] + e["dur"] <= hi + 1e-3 for e in ops)
+    counters = [e for e in events if e["name"] == "program counters"]
+    assert len(counters) == 1 and counters[0]["ph"] == "C"
+    assert counters[0]["args"]["test.counter"] == 3
+    kineto = [(e.start_ns(), e.end_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name() == "aten::mul"]
+    assert kineto and all(span[1] <= s <= e <= span[2] for s, e in kineto)
+    profiling.reset()
